@@ -1,0 +1,130 @@
+"""The port stands alone: it imports without JAX, flax or ``txr``, builds
+nothing at import, and runs on the CPU only when asked to.
+
+The import checks run in a subprocess, because the test process itself has
+JAX loaded (``tests/conftest.py`` imports it).
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "txr_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in PKG.rglob("*.py"))
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_package_has_the_slice_modules():
+    want = {"txr_torch", "txr_torch._cuda", "txr_torch.core.types",
+            "txr_torch.core.intrinsics", "txr_torch.ops.resize",
+            "txr_torch.ops.attention", "txr_torch.ops.dpt_tail",
+            "txr_torch.ops.scan", "txr_torch.ops.segment",
+            "txr_torch.ops.backproject", "txr_torch.models.vit",
+            "txr_torch.models.dpt", "txr_torch.models.depth_anything",
+            "txr_torch.models.convert", "txr_torch.fusion.keys",
+            "txr_torch.fusion.offset_map"}
+    assert want <= set(MODULES)
+    assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
+        "attention.cu", "dpt_tail.cu", "segscan.cu"}
+
+
+def test_import_leaves_jax_flax_txr_out():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'txr'))\n"
+        "assert not bad, bad\n"
+        "print('imported', len(mods))\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert f"imported {len(MODULES)}" in r.stdout
+
+
+def test_import_builds_nothing_and_needs_no_cuda():
+    code = (
+        "import sys, pathlib\n"
+        "import txr_torch._cuda as k\n"
+        f"mods = {MODULES!r}\n"
+        "import importlib\n"
+        "[importlib.import_module(m) for m in mods]\n"
+        "assert k._lib is None and not k.build_log\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('clean')\n")
+    before = set((ROOT / "build").rglob("*")) if (ROOT / "build").exists() \
+        else set()
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    after = set((ROOT / "build").rglob("*")) if (ROOT / "build").exists() \
+        else set()
+    assert after == before
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_source_imports_no_jax_flax_txr(path):
+    text = (ROOT / path).read_text()
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|txr)(?:[.\s]|$)",
+                     re.M)
+    assert not pat.findall(text), path
+
+
+def test_sources_keep_library_calls_off_the_kernel_path():
+    """No fused library operator or compiler stands in for a kernel."""
+    for p in PKG.rglob("*.py"):
+        text = p.read_text()
+        assert "scaled_dot_product_attention" not in text, p
+        assert "torch.compile" not in text, p
+
+
+def test_device_none_means_cuda_and_raises_without_it():
+    from txr_torch import resolve_device
+    from txr_torch.core.types import PointSet
+    from txr_torch.fusion.offset_map import create_offset_map
+    from txr_torch.models.depth_anything import (DepthAnythingModel,
+                                                 build_model)
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for call in (lambda: resolve_device(None),
+                 lambda: create_offset_map(16, 0.1),
+                 lambda: PointSet.empty(4),
+                 lambda: build_model("v2", "vits"),
+                 lambda: DepthAnythingModel("v2", "vits"),
+                 lambda: resolve_device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    vm = create_offset_map(16, 0.1, device="cpu")
+    assert vm.khi.device.type == "cpu" and vm.khi.shape == (16,)
+    assert PointSet.empty(4, device="cpu").capacity == 4
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       cwd=str(ROOT), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
