@@ -38,10 +38,13 @@ def test_package_has_the_slice_modules():
             "txr_torch.ops.backproject", "txr_torch.models.vit",
             "txr_torch.models.dpt", "txr_torch.models.depth_anything",
             "txr_torch.models.convert", "txr_torch.fusion.keys",
-            "txr_torch.fusion.offset_map"}
+            "txr_torch.fusion.offset_map", "txr_torch.core.derived",
+            "txr_torch.ops.quant", "txr_torch.ops.quant_fused",
+            "txr_torch.ops.conv_stripe", "txr_torch.models.checkpoint"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
-        "attention.cu", "dpt_tail.cu", "segscan.cu"}
+        "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
+        "conv3x3.cu"}
 
 
 def test_import_leaves_jax_flax_txr_out():
@@ -68,6 +71,8 @@ def test_import_builds_nothing_and_needs_no_cuda():
         "[importlib.import_module(m) for m in mods]\n"
         "assert k._lib is None and not k.build_log\n"
         "assert 'triton' not in sys.modules\n"
+        "for m in ('safetensors', 'transformers', 'cv2'):\n"
+        "    assert m not in sys.modules, m\n"
         "print('clean')\n")
     before = set((ROOT / "build").rglob("*")) if (ROOT / "build").exists() \
         else set()
@@ -94,6 +99,45 @@ def test_sources_keep_library_calls_off_the_kernel_path():
         text = p.read_text()
         assert "scaled_dot_product_attention" not in text, p
         assert "torch.compile" not in text, p
+    # the library's int8 product belongs to the "int8" policy alone, and
+    # the library's conv appears beside the conv kernel only as its plain
+    # version
+    for name in ("quant_fused.py", "conv_stripe.py", "attention.py"):
+        assert "_int_mm" not in (PKG / "ops" / name).read_text(), name
+    text = (PKG / "ops" / "conv_stripe.py").read_text()
+    launch = text[text.index("def _launch"):text.index("class _Conv3x3Stripe")]
+    assert "F.conv2d" not in launch and "conv3x3_reference" not in launch
+
+
+def test_every_kernel_has_a_launch_count():
+    import txr_torch._cuda as k
+
+    assert set(k.launches) == {"attention", "attention_bhsd", "dpt_tail",
+                               "segscan", "int8_linear", "conv3x3"}
+    k.launches["conv3x3"] += 2
+    k.reset_launches()
+    assert not any(k.launches.values())
+
+
+@pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd"])
+def test_cpu_tensors_never_reach_a_kernel(call):
+    """On a CPU tensor a wrapper runs its plain version and counts no
+    launch."""
+    import txr_torch._cuda as k
+    from txr_torch.ops.attention import attention_flash
+    from txr_torch.ops.conv_stripe import conv3x3_stripe
+    from txr_torch.ops.quant_fused import int8_linear
+
+    k.reset_launches()
+    if call == "int8_linear":
+        int8_linear(torch.ones(4, 16), torch.ones(16, 8))
+    elif call == "conv3x3":
+        conv3x3_stripe(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8),
+                       torch.ones(8))
+    else:
+        q = torch.ones(1, 3, 4, 64)
+        attention_flash(q, q, q)
+    assert not any(k.launches.values()) and k._lib is None
 
 
 def test_device_none_means_cuda_and_raises_without_it():

@@ -249,13 +249,49 @@ class TestRegistry:
             jda.hf_model_name("v2", "vitb", True, "vkitti")
 
     def test_build_model_rejects_unknown_and_unported(self):
+        """Every configuration txr's models have is ported, so nothing
+        raises NotImplementedError any more: an unknown registry entry or
+        quant policy is a ValueError, a missing checkpoint file an OSError,
+        and the quant policies and fused_convs build."""
         with pytest.raises(ValueError):
             build_model("v9", "vitl", device="cpu")
-        with pytest.raises(NotImplementedError):
-            build_model("v2", "vits", quant="int8", device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
+            build_model("v2", "vits", quant="int4", device="cpu")
+        with pytest.raises(OSError):
             DepthAnythingModel("v2", "vits", checkpoint_path="x.pth",
                                device="cpu")
+        for quant in ("int8", "int8p", "int8mix"):
+            _, vit, _ = build_model("v2", "vits", quant=quant, device="cpu")
+            assert vit.quant == quant
+        from txr_torch.models.dpt import DPTHead
+        DPTHead(DPTConfig(fused_convs=True), 384)
+
+    @pytest.mark.parametrize("head", ["1", "0", None])
+    @pytest.mark.parametrize("convs", ["1", "0", None])
+    def test_fused_env_knobs_equal_txr(self, head, convs, monkeypatch):
+        """TXR_FUSED_HEAD / TXR_FUSED_CONVS: "1" / "0" force, unset leaves
+        the config default, exactly as txr's build_model reads them."""
+        import txr.models.depth_anything as jda
+
+        for name, val in (("TXR_FUSED_HEAD", head),
+                          ("TXR_FUSED_CONVS", convs)):
+            if val is None:
+                monkeypatch.delenv(name, raising=False)
+            else:
+                monkeypatch.setenv(name, val)
+        _, _, want = jda.build_model("v2", "vits")
+        model, _, got = build_model("v2", "vits", device="cpu")
+        assert (got.fused_head, got.fused_convs) == \
+            (want.fused_head, want.fused_convs)
+        knob = {"1": True, "0": False, None: None}
+        assert got.fused_head is knob[head]
+        assert got.fused_convs is knob[convs]
+        assert model.head.fusion_0.fused is bool(knob[convs])
+
+    def test_fused_env_knobs_ignore_other_values(self, monkeypatch):
+        monkeypatch.setenv("TXR_FUSED_CONVS", "yes")
+        _, _, dpt = build_model("v2", "vits", device="cpu")
+        assert dpt.fused_convs is None
 
     def test_swiglu_block_matches_txr(self):
         """The vitg feed-forward (w12 / w3) through both packages."""

@@ -68,6 +68,36 @@ class TestResizeParity:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-3)
 
 
+class TestStridedResize:
+    @pytest.mark.parametrize("align", [True, False])
+    @pytest.mark.parametrize("shape,h,w,rs,cs", [
+        ((2, 7, 9, 3), 13, 20, 2, 3), ((1, 8, 8, 2), 19, 11, 1, 2),
+        ((1, 12, 10, 1), 5, 7, 4, 1), ((3, 5, 6, 1), 1, 9, 2, 2)])
+    def test_strided_matches_txr_and_the_full_resize(self, shape, h, w, rs,
+                                                     cs, align):
+        """f32 1e-5 against txr's strided resize and against the strided
+        slice of the port's full resize: same taps and weights."""
+        x = _x(shape, 4)
+        want = np.asarray(jr.resize_bilinear_strided(
+            jnp.asarray(x), h, w, align_corners=align, row_stride=rs,
+            col_stride=cs))
+        tx = torch.from_numpy(x)
+        got = tr.resize_bilinear_strided(tx, h, w, align, rs, cs)
+        full = tr.resize_bilinear(tx, h, w, align_corners=align)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(),
+                                   full[..., ::rs, ::cs, :].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_strided_keeps_a_floating_dtype(self):
+        x = torch.from_numpy(_x((1, 6, 5, 2), 5)).to(torch.bfloat16)
+        y = tr.resize_bilinear_strided(x, 12, 9, True, 2, 2)
+        assert y.dtype == torch.bfloat16 and y.shape == (1, 6, 5, 2)
+        u8 = torch.zeros((1, 4, 4, 1), dtype=torch.uint8)
+        assert tr.resize_bilinear_strided(u8, 8, 8).dtype == torch.float32
+
+
 class TestDaResize:
     @pytest.mark.parametrize("target", [518, 224, 56])
     def test_compute_da_resize_equal_over_a_grid(self, target):

@@ -34,7 +34,9 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches made by its wrapper (see each ops module)
-launches: Dict[str, int] = {"attention": 0, "dpt_tail": 0, "segscan": 0}
+launches: Dict[str, int] = {"attention": 0, "attention_bhsd": 0,
+                            "dpt_tail": 0, "segscan": 0, "int8_linear": 0,
+                            "conv3x3": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -152,6 +154,16 @@ def _declare(h: ctypes.CDLL) -> None:
     # (qkv, out, B, S, H, kv_len, scale, stream)
     h.txr_attention_fwd.argtypes = [p, p, i, i, i, i, f, p]
     h.txr_attention_fwd.restype = i
+    # (q, k, v, out, B, H, S, kv_len, scale, strides[12], stream)
+    h.txr_attention_bhsd_fwd.argtypes = [p, p, p, p, i, i, i, i, f,
+                                         ctypes.POINTER(ll), p]
+    h.txr_attention_bhsd_fwd.restype = i
+    # (x, wq, sw, bias, xq, sx, out, M, K, N, stream)
+    h.txr_int8_linear_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    h.txr_int8_linear_fwd.restype = i
+    # (x, wp, bias, out, B, H, W, C, F, relu_in, stream)
+    h.txr_conv3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    h.txr_conv3x3_fwd.restype = i
     # (x, w2t, b2, w3, b3, out, B, Hin, Win, C, out_h, out_w, stream)
     h.txr_dpt_tail_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     h.txr_dpt_tail_fwd.restype = i

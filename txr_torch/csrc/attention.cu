@@ -1,9 +1,16 @@
-// Softmax attention straight off the fused qkv projection, for Hopper.
+// Softmax attention for Hopper, straight off the fused qkv projection or
+// off separate (B, H, S, D) operands.
 //
 // Replaces the TPU kernels txr/ops/attention.py:_fused_kernel_1pass (full
 // keys) and :_fused_kernel (kv_len < S): out = softmax(q k^T / sqrt(D)) v
 // with q, k, v read in place from the (B, S, 3*H*D) component-major
-// projection and the result written as (B, S, H*D).
+// projection and the result written as (B, S, H*D); and, through the second
+// entry point, txr/ops/attention.py:_flash_kernel: the same function on q,
+// k, v of shape (B, H, S, D).  One kernel serves both: it addresses each
+// operand by a base pointer and three strides (batch, head, row), so the
+// (B, H, S, D) operands may be views of any layout whose rows of D elements
+// are contiguous, such as the slices a ViT takes from its fused projection,
+// and need no copy.
 //
 // Bound on this card: operations.  4*B*H*S^2*D flop per launch against
 // roughly 12*B*S*H*D bytes puts the work far above the bf16 ridge, so the
@@ -96,9 +103,16 @@ __device__ __forceinline__ void load_tile(bf16* smem, const bf16* gmem,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     int S, int H, int kv_len, float scale_log2e) {
+// Element strides of one operand: batch, head, row (of D contiguous values).
+struct Strides {
+  int64_t b, h, r;
+};
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     Strides sq, Strides sk, Strides sv, Strides so, int S,
+                     int kv_len, float scale_log2e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BM x LDS
   bf16* sK = sQ + BM * LDS;                      // 2 x BN x LDS
@@ -107,16 +121,14 @@ attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BM;
-  const int64_t ld = static_cast<int64_t>(3) * H * D;
-  const bf16* base = qkv + static_cast<int64_t>(b) * S * ld;
-  const bf16* gQ = base + h * D;
-  const bf16* gK = base + (H + h) * D;
-  const bf16* gV = base + (2 * H + h) * D;
+  const bf16* gQ = q + b * sq.b + h * sq.h;
+  const bf16* gK = k + b * sk.b + h * sk.h;
+  const bf16* gV = v + b * sv.b + h * sv.h;
   const int ntiles = (kv_len + BN - 1) / BN;
 
-  load_tile(sQ, gQ, ld, q0, S, BM);
-  load_tile(sK, gK, ld, 0, kv_len, BN);
-  load_tile(sV, gV, ld, 0, kv_len, BN);
+  load_tile(sQ, gQ, sq.r, q0, S, BM);
+  load_tile(sK, gK, sk.r, 0, kv_len, BN);
+  load_tile(sV, gV, sv.r, 0, kv_len, BN);
   cp_async_commit();
 
   const int warp = threadIdx.x >> 5;
@@ -128,7 +140,7 @@ attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) o[i][k] = 0.f;
+    for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
   uint32_t qf[4][4];
@@ -136,8 +148,10 @@ attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   for (int j = 0; j < ntiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < ntiles) {
-      load_tile(sK + (buf ^ 1) * BN * LDS, gK, ld, (j + 1) * BN, kv_len, BN);
-      load_tile(sV + (buf ^ 1) * BN * LDS, gV, ld, (j + 1) * BN, kv_len, BN);
+      load_tile(sK + (buf ^ 1) * BN * LDS, gK, sk.r, (j + 1) * BN, kv_len,
+                BN);
+      load_tile(sV + (buf ^ 1) * BN * LDS, gV, sv.r, (j + 1) * BN, kv_len,
+                BN);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: tile j (and q) landed
@@ -249,8 +263,8 @@ attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
-  const int64_t ldo = static_cast<int64_t>(H) * D;
-  bf16* ob = out + static_cast<int64_t>(b) * S * ldo + h * D + t * 2;
+  const int64_t ldo = so.r;
+  bf16* ob = out + b * so.b + h * so.h + t * 2;
 #pragma unroll
   for (int ni = 0; ni < 8; ++ni) {
     if (row0 < S) {
@@ -264,13 +278,9 @@ attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// qkv: (B, S, 3*H*64) bf16 contiguous, 16-byte aligned; out: (B, S, H*64).
-// 1 <= kv_len <= S.  Returns the launch's cudaError_t (0 on success).
-extern "C" int txr_attention_fwd(const void* qkv, void* out, int B, int S,
-                                 int H, int kv_len, float scale,
-                                 void* stream) {
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int S, int H, int kv_len,
+           float scale, void* stream) {
   const size_t smem = static_cast<size_t>(BM + 4 * BN) * LDS * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -279,7 +289,38 @@ extern "C" int txr_attention_fwd(const void* qkv, void* out, int B, int S,
   dim3 grid((S + BM - 1) / BM, H, B);
   attention_fwd_kernel<<<grid, NTHREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, kv_len,
-      scale * 1.4426950408889634f);
+      q, k, v, out, sq, sk, sv, so, S, kv_len, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// qkv: (B, S, 3*H*64) bf16 contiguous, 16-byte aligned; out: (B, S, H*64).
+// 1 <= kv_len <= S.  Returns the launch's cudaError_t (0 on success).
+extern "C" int txr_attention_fwd(const void* qkv, void* out, int B, int S,
+                                 int H, int kv_len, float scale,
+                                 void* stream) {
+  const int64_t ld = static_cast<int64_t>(3) * H * D;
+  const Strides in = {static_cast<int64_t>(S) * ld, D, ld};
+  const Strides so = {static_cast<int64_t>(S) * H * D, D,
+                      static_cast<int64_t>(H) * D};
+  const bf16* base = static_cast<const bf16*>(qkv);
+  return launch(base, base + H * D, base + 2 * H * D, static_cast<bf16*>(out),
+                in, in, in, so, B, S, H, kv_len, scale, stream);
+}
+
+// q, k, v, out: (B, H, S, 64) bf16 views.  strides: twelve element strides,
+// (batch, head, row) of q, k, v and out in that order; every row of 64
+// values is contiguous and 16-byte aligned.  1 <= kv_len <= S.  Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int txr_attention_bhsd_fwd(const void* q, const void* k,
+                                      const void* v, void* out, int B, int H,
+                                      int S, int kv_len, float scale,
+                                      const long long* strides, void* stream) {
+  Strides s[4];
+  for (int i = 0; i < 4; ++i)
+    s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<bf16*>(out), s[0],
+                s[1], s[2], s[3], B, S, H, kv_len, scale, stream);
 }

@@ -9,14 +9,20 @@ counterpart of ``txr/models/depth_anything.py``.
   focal-length scaling depth *= ((fx+fy)/2)/300.0.
 
 Everything runs on the CUDA device unless the caller passes
-``device="cpu"``. Reading checkpoint files is not ported yet; the model
+``device="cpu"``. ``checkpoint_path`` reads ``.safetensors`` / ``.pth``
+files in Hugging Face or original Depth-Anything naming, or a directory
+written by ``txr_torch.models.checkpoint.save_params``; without it the model
 starts from seeded random weights, as ``txr`` does without a checkpoint.
+``quant`` selects the int8 policy of the encoder's dense layers, and the
+environment variables ``TXR_FUSED_HEAD`` / ``TXR_FUSED_CONVS`` ("1" / "0")
+force the head's kernels on or off, as in ``txr``.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 from dataclasses import replace
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -136,7 +142,11 @@ def build_model(version: str = "v2", encoder: str = "vitl",
                 ) -> Tuple[DepthAnything, ViTConfig, DPTConfig]:
     """Construct the model for a registry entry on ``device`` (``None``:
     the CUDA device) with weights drawn from ``generator`` (``None``: a CPU
-    generator seeded with 0) and cast to ``dtype``."""
+    generator seeded with 0) and cast to ``dtype``.
+
+    ``TXR_FUSED_HEAD`` and ``TXR_FUSED_CONVS`` set to "1" or "0" force
+    ``DPTConfig.fused_head`` / ``fused_convs`` on or off; unset (or any
+    other value) leaves the config defaults."""
     dev = resolve_device(device)
     version = version.lower()
     # v3's registry keys its large model "large"; accept both spellings.
@@ -151,11 +161,14 @@ def build_model(version: str = "v2", encoder: str = "vitl",
         vit = replace(vit, use_flash=use_flash)
     if quant != "none":
         vit = replace(vit, quant=quant)
+    knob = {"1": True, "0": False}
     dpt = DPTConfig(
         features=cfg["features"],
         out_channels=tuple(cfg["out_channels"]),
         metric=metric,
         max_depth=max_depth,
+        fused_head=knob.get(os.environ.get("TXR_FUSED_HEAD", "")),
+        fused_convs=knob.get(os.environ.get("TXR_FUSED_CONVS", "")),
     )
     model = DepthAnything(vit, dpt)
     if generator is None:
@@ -203,19 +216,21 @@ class DepthAnythingModel:
         self.focal_length_ref = focal_length_ref
         self.param_dtype = param_dtype
 
-        if checkpoint_path:
-            raise NotImplementedError(
-                "checkpoint_path: reading .safetensors / .pth checkpoints "
-                "(HF and original Depth-Anything naming) belongs to the "
-                "depth-CLI slice of the port and is not there yet; weights "
-                "can be brought across from txr with "
-                "txr_torch.models.convert.from_txr_params")
-        logger.warning(
-            "No checkpoint provided or found, using uninitialized model")
         gen = torch.Generator(device="cpu").manual_seed(seed)
         self.model, self.vit_cfg, self.dpt_cfg = build_model(
             version, encoder, metric, max_depth, use_flash, quant=quant,
             device=self.device, dtype=param_dtype, generator=gen)
+        if checkpoint_path:
+            from txr_torch.models.checkpoint import load_checkpoint
+
+            # load_state_dict copies into the parameters, so the tensors land
+            # on the model's device in its dtype
+            self.model.load_state_dict(
+                load_checkpoint(checkpoint_path, self.vit_cfg.num_layers))
+            logger.info("Loaded checkpoint from %s", checkpoint_path)
+        else:
+            logger.warning(
+                "No checkpoint provided or found, using uninitialized model")
 
     @torch.no_grad()
     def _forward(self, rgb_u8: torch.Tensor, in_h: int, in_w: int,

@@ -4,10 +4,13 @@ of ``txr/models/vit.py``.
 Patch-14 conv embedding, cls token, bicubically interpolated position
 embeddings, pre-norm blocks with LayerScale, exact GELU, and a final
 LayerNorm applied to each harvested intermediate hidden state. The fused qkv
-projection stays one matrix product and attention goes through
-``txr_torch.ops.attention.fused_attention``; the large matrix products
-(qkv, proj, fc1, fc2, w12, w3, the patch embedding) are ``nn.Linear`` /
-``nn.Conv2d``, as ``txr`` leaves them to its compiler.
+projection stays one matrix product. Attention goes through
+``txr_torch.ops.attention.fused_attention`` for an even head count and
+through ``multi_head_attention`` on (B, H, S, D) views for an odd one, as in
+``txr``. The large matrix products (qkv, proj, fc1, fc2, w12, w3, the patch
+embedding) are ``nn.Linear`` / ``nn.Conv2d``, as ``txr`` leaves them to its
+compiler, unless ``ViTConfig.quant`` selects an int8 policy for the block's
+dense layers (``_dense``).
 
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
@@ -23,7 +26,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from txr_torch.ops.attention import attention_reference, fused_attention
+from txr_torch.ops.attention import (fused_attention, multi_head_attention,
+                                     split_heads)
+from txr_torch.ops.quant import Int8Linear
+from txr_torch.ops.quant_fused import Int8LinearFused
 from txr_torch.ops.resize import resize_bicubic
 
 
@@ -38,11 +44,13 @@ class ViTConfig:
     pos_embed_size: int = 37          # grid side the stored pos embed was trained at
     use_swiglu: bool = False          # DINOv2-giant uses SwiGLU-fused FFN
     out_layers: Tuple[int, ...] = (2, 5, 8, 11)
-    # True / None: attention through fused_attention (the kernel on a CUDA
-    # tensor, its plain version on a CPU tensor); False: the plain version
-    # everywhere.
+    # True / None: attention through the kernel on a CUDA tensor and its
+    # plain version on a CPU tensor; False: the plain version everywhere.
     use_flash: Optional[bool] = None
-    # Kept for parity with txr; only "none" is ported so far.
+    # Dense layers of the blocks: "none" nn.Linear; "int8" W8A8 with the
+    # product left to a library (txr_torch.ops.quant); "int8p" the fused
+    # W8A8 kernel (txr_torch.ops.quant_fused); "int8mix" the kernel for
+    # fc2 / w3 and "int8" elsewhere. The parameters are the same either way.
     quant: str = "none"
 
 
@@ -57,19 +65,33 @@ VIT_PRESETS = {
 }
 
 
-def _check_quant(quant: str) -> None:
-    if quant != "none":
-        raise NotImplementedError(
-            f"quant={quant!r}: the int8 dense policies (txr/ops/quant.py, "
-            "txr/ops/quant_pallas.py) are not ported yet")
+QUANT_POLICIES = ("none", "int8", "int8p", "int8mix")
+
+
+def _dense(quant: str, role: str = ""):
+    """Linear layer class for the quant policy; identical parameters.
+
+    ``txr``'s table: "int8" the library product everywhere, "int8p" the
+    fused kernel everywhere, "int8mix" the fused kernel only for the role
+    "fc2" (the reduction over the wide hidden dimension) and "int8"
+    elsewhere.
+    """
+    if quant not in QUANT_POLICIES:
+        raise ValueError(
+            f"unknown quant policy {quant!r}; expected one of "
+            f"{QUANT_POLICIES}")
+    if quant == "int8" or (quant == "int8mix" and role != "fc2"):
+        return Int8Linear
+    if quant == "int8p" or (quant == "int8mix" and role == "fc2"):
+        return Int8LinearFused
+    return nn.Linear
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, out: int, quant: str = "none"):
         super().__init__()
-        _check_quant(quant)
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = _dense(quant, "fc1")(dim, hidden)
+        self.fc2 = _dense(quant, "fc2")(hidden, out)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -80,9 +102,9 @@ class SwiGLU(nn.Module):
 
     def __init__(self, dim: int, hidden: int, out: int, quant: str = "none"):
         super().__init__()
-        _check_quant(quant)
-        self.w12 = nn.Linear(dim, 2 * hidden)
-        self.w3 = nn.Linear(hidden, out)
+        self.w12 = _dense(quant)(dim, 2 * hidden)
+        # w3 contracts the wide hidden dimension: the fc2 role
+        self.w3 = _dense(quant, "fc2")(hidden, out)
 
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
@@ -92,20 +114,25 @@ class SwiGLU(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        _check_quant(cfg.quant)
         d = cfg.hidden_size
         self.cfg = cfg
-        self.qkv = nn.Linear(d, 3 * d)   # one fused matrix product
-        self.proj = nn.Linear(d, d)
+        dense = _dense(cfg.quant)
+        self.qkv = dense(d, 3 * d)   # one fused matrix product
+        self.proj = dense(d, d)
 
     def forward(self, x, kv_len: Optional[int] = None):
         c = self.cfg
-        head_dim = x.shape[-1] // c.num_heads
+        b, s, d = x.shape
+        head_dim = d // c.num_heads
         qkv = self.qkv(x)
-        if c.use_flash is False:
-            o = attention_reference(qkv, c.num_heads, head_dim, kv_len)
-        else:
+        if c.use_flash is not False and c.num_heads % 2 == 0:
+            # the kernel reads the fused layout in place
             o = fused_attention(qkv, c.num_heads, head_dim, kv_len)
+        else:
+            q, k, v = split_heads(qkv, c.num_heads, head_dim)
+            o = multi_head_attention(q, k, v, kv_len=kv_len,
+                                     use_flash=c.use_flash)
+            o = o.transpose(1, 2).reshape(b, s, d)
         return self.proj(o)
 
 
@@ -137,7 +164,7 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        _check_quant(cfg.quant)
+        _dense(cfg.quant)                 # an unknown policy raises here
         self.cfg = cfg
         d = cfg.hidden_size
         self.patch_embed = nn.Conv2d(3, d, cfg.patch_size,

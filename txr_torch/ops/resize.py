@@ -41,6 +41,42 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int,
     return _resize(x, height, width, "bilinear", align_corners)
 
 
+def _strided_taps(out_size: int, in_size: int, align_corners: bool,
+                  stride: int, device):
+    """(lo index, hi index, hi weight) of every ``stride``-th output
+    position of a 1-D linear resize, with F.interpolate's conventions."""
+    i = torch.arange(0, out_size, stride, device=device, dtype=torch.float32)
+    if align_corners:
+        src = i * ((in_size - 1) / max(out_size - 1, 1))
+    else:
+        # negative source coordinates clamp to 0, as F.interpolate does
+        src = ((i + 0.5) * (in_size / out_size) - 0.5).clamp_min(0.0)
+    base = src.floor()
+    lo = base.long().clamp(0, in_size - 1)
+    hi = (base.long() + 1).clamp(0, in_size - 1)
+    return lo, hi, src - base
+
+
+def resize_bilinear_strided(x: torch.Tensor, height: int, width: int,
+                            align_corners: bool = False, row_stride: int = 1,
+                            col_stride: int = 1) -> torch.Tensor:
+    """``resize_bilinear(x, height, width)[..., ::row_stride, ::col_stride, :]``
+    without materialising the full-resolution result: only the sampled rows
+    and columns are interpolated (two gathers and a lerp per axis)."""
+    dt = x.dtype if x.is_floating_point() else torch.float32
+    h, w = x.shape[-3], x.shape[-2]
+    y = x.to(torch.float32)
+    rlo, rhi, rw = _strided_taps(height, h, align_corners, row_stride,
+                                 x.device)
+    clo, chi, cw = _strided_taps(width, w, align_corners, col_stride,
+                                 x.device)
+    rw = rw[:, None, None]
+    y = y.index_select(-3, rlo) * (1.0 - rw) + y.index_select(-3, rhi) * rw
+    cw = cw[:, None]
+    y = y.index_select(-2, clo) * (1.0 - cw) + y.index_select(-2, chi) * cw
+    return y.to(dt)
+
+
 def resize_bicubic(x: torch.Tensor, height: int, width: int,
                    align_corners: bool = False) -> torch.Tensor:
     """Bicubic (Keys a=-0.75, taps clamped at the border, no antialias)
