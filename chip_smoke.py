@@ -12,6 +12,14 @@ paths below give it, and then drives those paths at full width:
     -> back-projection on the 518x924 depth grid
     -> insert into the packed mean-offset voxel map (capacity 2^21, 1 cm)
 
+Each kernel is held against its plain version at its path shapes and at
+ragged ones (attention: S = 2432 and 77, ``kv_len`` 1 / 64 / 1984 / 2000,
+three stride patterns of the (B, H, S, D) entry; conv: an image smaller than
+a tile, F = 136); the attention and conv kernels are run twice on one input
+and must repeat bit for bit, are timed against their library calls inside
+one interleaved loop (20 rounds, min / median / max on the ``kernels`` line),
+and the built library must report the tiling the wrappers compute with.
+
 ``main_path`` runs it with the default configuration (attention, DPT tail
 and segmented-scan kernels); ``quant_path`` with ``quant="int8p"`` and
 ``TXR_FUSED_CONVS=1`` (also the int8 linear and 3x3 conv kernels);
@@ -28,13 +36,15 @@ script exits with code 2 and prints no result.
 
 Options (none is needed): ``--frames N`` frames per step (default 8);
 ``--profile`` builds with ``-Xptxas -v`` and adds a ``ptxas`` line (each
-kernel's registers and spills) and a ``profile`` line (one extra step under
+kernel's registers and spills; a spill or a "wgmma serialized" warning
+fails the run) and a ``profile`` line (one extra step under
 ``torch.profiler``: device time by kernel, largest first).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -57,12 +67,17 @@ from txr_torch.fusion.offset_map import (create_offset_map,
 from txr_torch.models.depth_anything import DepthAnything, build_model
 from txr_torch.models.dpt import DPTConfig
 from txr_torch.models.vit import ViTConfig
+from txr_torch.ops.attention import BLOCK_K as ATTN_BLOCK_K
+from txr_torch.ops.attention import BLOCK_Q as ATTN_BLOCK_Q
 from txr_torch.ops.attention import (attention_flash, attention_plain,
                                      attention_reference, fused_attention,
                                      split_heads)
+from txr_torch.ops.attention import kernel_geometry as attention_geometry
 from txr_torch.ops.backproject import backproject_world
-from txr_torch.ops.conv_stripe import (conv3x3_reference, conv3x3_stripe,
+from txr_torch.ops.conv_stripe import (BLOCK_F, TILE_H, TILE_W,
+                                       conv3x3_reference, conv3x3_stripe,
                                        pack_weight)
+from txr_torch.ops.conv_stripe import kernel_geometry as conv_geometry
 from txr_torch.ops.dpt_tail import fused_head_tail, head_tail_reference
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import (Int8LinearFused, int8_linear,
@@ -102,6 +117,56 @@ def time_ms(fn, runs: int = 5, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_spread(fns: dict, runs: int = 20, warmup: int = 3,
+                inner: int = 5) -> dict:
+    """Times several functions against each other inside one loop: after
+    ``warmup`` calls of each, ``runs`` rounds in which every function is
+    timed in turn, so that clock and temperature drift hits all alike. One
+    sample is ``inner`` launches enqueued back to back between two CUDA
+    events, divided by ``inner``: the host's work to enqueue the first
+    launch (tens of microseconds of wrapper code on an idle card) is then
+    spread over the sample and is not billed to the kernel. Returns
+    ``{name: {"min": ms, "median": ms, "max": ms}}``."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / inner)
+    return {name: {"min": min(ts), "median": statistics.median(ts),
+                   "max": max(ts), "runs": runs, "launches_per_run": inner}
+            for name, ts in times.items()}
+
+
+def require_repeatable(name: str, fn) -> None:
+    """Two runs on one input must agree bit for bit (no float atomics)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two runs on one input differ")
+    emit({"phase": "kernel_check", "kernel": name,
+          "case": "two runs on one input are bit-equal", "ok": True})
+
+
+def require_geometry(name: str, entry, expected: tuple) -> None:
+    """The built library must report the tiling the Python side computes
+    grids and shared-memory sizes from."""
+    buf = (ctypes.c_int * 4)()
+    entry(buf)
+    if tuple(buf) != tuple(expected):
+        raise AssertionError(f"{name}: the library reports geometry "
+                             f"{tuple(buf)}, the wrapper assumes {expected}")
 
 
 def compare(name: str, case: str, got: torch.Tensor, want: torch.Tensor,
@@ -175,40 +240,73 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
     qkv[..., :HEADS * HEAD_DIM] *= 3.0
     qkv = qkv.to(torch.bfloat16)
 
+    geo = attention_geometry(batch, HEADS, s, s)
+    require_geometry("attention", kernels.lib().txr_attention_geometry,
+                     (ATTN_BLOCK_Q, ATTN_BLOCK_K, geo["smem_bytes"],
+                      geo["threads"]))
     got = fused_attention(qkv, HEADS, HEAD_DIM)
     want = attention_reference(qkv, HEADS, HEAD_DIM)
     err = compare("attention", f"main B={batch} S={s}", got, want, **ATTN_TOL)
     del want
-    # the ragged-key case that txr serves with its streaming kernel
-    kv = 2000
+    require_repeatable("attention",
+                       lambda: fused_attention(qkv, HEADS, HEAD_DIM))
+    # ragged keys, which txr serves with its streaming kernel: one key, one
+    # 64-row box, a whole number of key tiles less than S, and a ragged tile
     sub = qkv[:2].contiguous()
-    compare("attention", f"kv_len={kv} B=2 S={s}",
-            fused_attention(sub, HEADS, HEAD_DIM, kv),
-            attention_reference(sub, HEADS, HEAD_DIM, kv), **ATTN_TOL)
+    for kv in (1, 64, 1984, 2000):
+        compare("attention", f"kv_len={kv} B=2 S={s}",
+                fused_attention(sub, HEADS, HEAD_DIM, kv),
+                attention_reference(sub, HEADS, HEAD_DIM, kv), **ATTN_TOL)
+    # a sequence that is a multiple of both tiles
+    even = qkv[:2, :2432].contiguous()
+    compare("attention", "S=2432 B=2", fused_attention(even, HEADS, HEAD_DIM),
+            attention_reference(even, HEADS, HEAD_DIM), **ATTN_TOL)
+    del even
     # a short sequence: one ragged tile, fewer query rows than a block
     tiny = qkv[:1, :77].contiguous()
     compare("attention", "S=77 B=1", fused_attention(tiny, HEADS, HEAD_DIM),
             attention_reference(tiny, HEADS, HEAD_DIM), **ATTN_TOL)
 
-    ms = time_ms(lambda: fused_attention(qkv, HEADS, HEAD_DIM))
     plain_ms = time_ms(lambda: attention_reference(qkv, HEADS, HEAD_DIM),
                        runs=3)
-    parts = qkv.view(batch, s, 3, HEADS, HEAD_DIM)
-    q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    q, k, v = split_heads(qkv, HEADS, HEAD_DIM)
+    kv = 2000
+    spread = time_spread({
+        "kernel": lambda: fused_attention(qkv, HEADS, HEAD_DIM),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v),
+        "kernel_kv": lambda: fused_attention(qkv, HEADS, HEAD_DIM, kv),
+        "library_kv": lambda: F.scaled_dot_product_attention(
+            q, k[:, :, :kv], v[:, :, :kv])})
+    ms = spread["kernel"]["median"]
     flops = 4.0 * batch * HEADS * s * s * HEAD_DIM
     nbytes = 2.0 * batch * s * (c + HEADS * HEAD_DIM)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    full = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    kv_ms = spread["kernel_kv"]["median"]
     return {"name": "attention", "route": "cuda",
             "source": "txr_torch/csrc/attention.cu",
             "replaces": "txr/ops/attention.py:170",
             "also_replaces": "txr/ops/attention.py:135 (kv_len < S)",
             "shape": [batch, s, c], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "ms_spread": spread["kernel"],
+            "plain_ms": plain_ms, **full,
+            "library_ms": spread["library"]["median"],
+            "library_ms_spread": spread["library"],
             "library_call": "F.scaled_dot_product_attention",
-            "tflops": flops / ms / 1e9}
+            "tflops": flops / ms / 1e9,
+            "no_slower_than_library": ms <= spread["library"]["median"],
+            "within_twice_its_bound": ms <= 2 * full["bound_ms"],
+            "kv_len_mode": {
+                "replaces": "txr/ops/attention.py:135", "kv_len": kv,
+                "shape": [batch, s, c], "ms": kv_ms,
+                "ms_spread": spread["kernel_kv"],
+                # row 1's work with kv_len of the S keys
+                **bound(flops * kv / s, PEAK_BF16_FLOPS, nbytes),
+                "library_ms": spread["library_kv"]["median"],
+                "library_ms_spread": spread["library_kv"],
+                "library_call": "F.scaled_dot_product_attention on the keys "
+                                "and values sliced to kv_len",
+                "tflops": flops * kv / s / kv_ms / 1e9},
+            "geometry": {**geo, "grid": list(geo["grid"])}}
 
 
 def check_tail(batch: int, gen: torch.Generator) -> dict:
@@ -485,11 +583,20 @@ def check_conv3x3(batch: int, gen: torch.Generator) -> dict:
     def exact(x, wgt, bias, relu):
         return conv3x3_reference(x.float(), wgt.float(), bias.float(), relu)
 
-    x, wgt, bias = operands(1, 13, 21, 48, 40)
-    for relu in (False, True):
-        compare("conv3x3", f"ragged 13x21 48->40 relu_in={relu}",
-                conv3x3_stripe(x, wgt, bias, relu), exact(x, wgt, bias, relu),
-                **CONV_TOL)
+    geo = conv_geometry(batch, 148, 264, 256, 256)
+    require_geometry("conv3x3", kernels.lib().txr_conv3x3_geometry,
+                     (TILE_H, TILE_W, BLOCK_F, geo["smem_bytes"]))
+    # ragged in every way: H, W, a short channel chunk, few features; an
+    # image smaller than one tile; a feature count that is a multiple of
+    # the feature block of no kind
+    for label, shape in (("ragged 13x21 48->40", (1, 13, 21, 48, 40)),
+                         ("smaller than a tile 5x7 64->64", (1, 5, 7, 64, 64)),
+                         ("F=136 20x33 256->136", (2, 20, 33, 256, 136))):
+        x, wgt, bias = operands(*shape)
+        for relu in (False, True):
+            compare("conv3x3", f"{label} relu_in={relu}",
+                    conv3x3_stripe(x, wgt, bias, relu),
+                    exact(x, wgt, bias, relu), **CONV_TOL)
 
     by_shape = []
     for label, h, w, c, f, per_step in (
@@ -505,7 +612,9 @@ def check_conv3x3(batch: int, gen: torch.Generator) -> dict:
                 f"relu_in={relu}", conv3x3_stripe(x, wgt, bias, relu, packed),
                 exact(x, wgt, bias, relu), **CONV_TOL))
         relu = label != "head_conv1"          # as the path calls it
-        ms = time_ms(lambda: conv3x3_stripe(x, wgt, bias, relu, packed))
+        if label == "fusion_1":
+            require_repeatable("conv3x3", lambda: conv3x3_stripe(
+                x, wgt, bias, relu, packed))
         plain_ms = time_ms(lambda: conv3x3_reference(x, wgt, bias, relu),
                            runs=3)
         xc = x.permute(0, 3, 1, 2)
@@ -515,34 +624,51 @@ def check_conv3x3(batch: int, gen: torch.Generator) -> dict:
         def library():
             return F.conv2d(F.relu(xc) if relu else xc, wk, bias, padding=1)
 
-        library_ms = time_ms(library)
+        spread = time_spread({
+            "kernel": lambda: conv3x3_stripe(x, wgt, bias, relu, packed),
+            "library": library})
+        ms = spread["kernel"]["median"]
         flops = 2.0 * 9 * c * f * h * w * batch
         nbytes = 2.0 * (x.numel() + wgt.numel() + batch * h * w * f) + 4.0 * f
+        site = conv_geometry(batch, h, w, c, f)
         by_shape.append({"site": label, "shape": [batch, h, w, c, f],
                          "relu_in": relu, "launches_per_step": per_step,
                          "max_abs_err": max(errs), "ms": ms,
+                         "ms_spread": spread["kernel"],
                          "plain_ms": plain_ms,
                          **bound(flops, PEAK_BF16_FLOPS, nbytes),
-                         "library_ms": library_ms,
-                         "tflops": flops / ms / 1e9})
+                         "library_ms": spread["library"]["median"],
+                         "library_ms_spread": spread["library"],
+                         "tflops": flops / ms / 1e9,
+                         "grid": list(site["grid"]),
+                         "stored_share": site["stored_share"]})
         del x, wgt, bias, packed, xc, wk
     mid = by_shape[1]
+    step_ms = sum(r["ms"] * r["launches_per_step"] for r in by_shape)
+    step_library_ms = sum(r["library_ms"] * r["launches_per_step"]
+                          for r in by_shape)
+    step_bound_ms = sum(r["bound_ms"] * r["launches_per_step"]
+                        for r in by_shape)
     return {"name": "conv3x3", "route": "cuda",
             "source": "txr_torch/csrc/conv3x3.cu",
             "replaces": "txr/ops/conv_stripe.py:45",
             "shape": mid["shape"], "shape_site": "fusion_0 (the other two "
             "shapes of the path are under by_shape)",
             "max_abs_err": max(r["max_abs_err"] for r in by_shape),
-            "ms": mid["ms"], "plain_ms": mid["plain_ms"],
+            "ms": mid["ms"], "ms_spread": mid["ms_spread"],
+            "plain_ms": mid["plain_ms"],
             "bound_ms": mid["bound_ms"], "bound_by": mid["bound_by"],
             "library_ms": mid["library_ms"],
+            "library_ms_spread": mid["library_ms_spread"],
             "library_call": "F.conv2d on channels_last bf16 (F.relu in "
                             "front where relu_in)",
-            "step_ms": sum(r["ms"] * r["launches_per_step"]
-                           for r in by_shape),
-            "step_library_ms": sum(r["library_ms"] * r["launches_per_step"]
-                                   for r in by_shape),
-            "tflops": mid["tflops"], "by_shape": by_shape}
+            "step_ms": step_ms, "step_library_ms": step_library_ms,
+            "step_bound_ms": step_bound_ms,
+            "no_slower_than_library": all(
+                r["ms"] <= r["library_ms"] for r in by_shape),
+            "within_twice_its_bound": step_ms <= 2 * step_bound_ms,
+            "tflops": mid["tflops"], "by_shape": by_shape,
+            "smem_bytes": geo["smem_bytes"]}
 
 
 def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
@@ -560,6 +686,7 @@ def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
     err = compare("attention_bhsd", f"main B={batch} H={h} S={s} views",
                   attention_flash(q, k, v), attention_plain(q, k, v),
                   **ATTN_TOL)
+    require_repeatable("attention_bhsd", lambda: attention_flash(q, k, v))
     kv = 2000
     compare("attention_bhsd", f"kv_len={kv} B=2 H={h} S={s}",
             attention_flash(q[:2], k[:2], v[:2], kv),
@@ -568,20 +695,47 @@ def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
             attention_flash(*(t[:1, :, :77].contiguous() for t in (q, k, v))),
             attention_plain(q[:1, :, :77], k[:1, :, :77], v[:1, :, :77]),
             **ATTN_TOL)
+    # two more stride patterns beside the views of the fused projection:
+    # contiguous (B, H, S, D) operands, and windows of a longer
+    # (B, H, S + 40, D) buffer (row stride D, head stride not S * D) with a
+    # key/value buffer of another length than the query's
+    want2 = attention_plain(q[:2], k[:2], v[:2])
+    compare("attention_bhsd", f"contiguous (B, H, S, D) B=2 H={h} S={s}",
+            attention_flash(*(t[:2].contiguous() for t in (q, k, v))), want2,
+            **ATTN_TOL)
 
-    ms = time_ms(lambda: attention_flash(q, k, v))
+    def window(t, pad, at):
+        buf = torch.zeros((2, h, s + pad, d), dtype=t.dtype, device="cuda")
+        buf[:, :, at:at + s] = t[:2]
+        return buf[:, :, at:at + s]
+
+    wq, wk, wv = window(q, 40, 8), window(k, 24, 16), window(v, 24, 0)
+    if wq.is_contiguous() or wq.stride() == wk.stride():
+        raise AssertionError("the windows should differ in their strides")
+    compare("attention_bhsd", f"windows of longer buffers B=2 H={h} S={s}",
+            attention_flash(wq, wk, wv), want2, **ATTN_TOL)
+    del want2, wq, wk, wv
+
     plain_ms = time_ms(lambda: attention_plain(q, k, v), runs=3)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    spread = time_spread({
+        "kernel": lambda: attention_flash(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v)})
+    ms = spread["kernel"]["median"]
     flops = 4.0 * batch * h * s * s * d
     nbytes = 2.0 * batch * s * 4 * h * d
+    full = bound(flops, PEAK_BF16_FLOPS, nbytes)
     return {"name": "attention_bhsd", "route": "cuda",
             "source": "txr_torch/csrc/attention.cu",
             "replaces": "txr/ops/attention.py:49",
             "shape": [batch, h, s, d], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound(flops, PEAK_BF16_FLOPS, nbytes),
-            "library_ms": library_ms,
+            "ms_spread": spread["kernel"],
+            "plain_ms": plain_ms, **full,
+            "library_ms": spread["library"]["median"],
+            "library_ms_spread": spread["library"],
             "library_call": "F.scaled_dot_product_attention",
-            "tflops": flops / ms / 1e9}
+            "tflops": flops / ms / 1e9,
+            "no_slower_than_library": ms <= spread["library"]["median"],
+            "within_twice_its_bound": ms <= 2 * full["bound_ms"]}
 
 
 # --------------------------------------------------------------- reference
@@ -949,7 +1103,18 @@ def main() -> int:
           "sources": [os.path.relpath(s) for s in kernels.sources()],
           "flags": kernels.NVCC_FLAGS})
     if args.profile:
-        emit({"phase": "ptxas", "kernels": ptxas_report(kernels.build_log)})
+        report = ptxas_report(kernels.build_log)
+        # ptxas says so (C7513 to C7515) when it had to serialise wgmma
+        serialised = re.findall(r"\(C751[0-9]\)[^\n]*serialized[^\n]*",
+                                kernels.build_log)
+        emit({"phase": "ptxas", "kernels": report,
+              "wgmma_serialised_warnings": len(serialised)})
+        spilled = [k["entry"] for k in report
+                   if k["spill_store_bytes"] or k["spill_load_bytes"]]
+        if spilled or serialised:
+            raise AssertionError(f"ptxas: spills in {spilled}, "
+                                 f"{len(serialised)} wgmma serialisation "
+                                 f"warnings: {serialised[:1]}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = []

@@ -191,3 +191,105 @@ def test_odd_head_encoder_matches_txr(use_flash):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------- host side of the kernel
+
+S_PATH = 2443        # tokens of a 518 x 924 input at patch 14, plus cls
+
+
+class TestKernelGeometry:
+    """The grid, tile and shared-memory arithmetic the CUDA kernel is
+    launched with (pure Python; the kernel itself runs only on the card)."""
+
+    @pytest.mark.parametrize("batch,heads,s,kv", [
+        (8, 16, S_PATH, S_PATH),      # main_path and quant_path
+        (8, 15, S_PATH, S_PATH),      # odd_heads_path
+        (8, 16, S_PATH, 2000),        # the kv_len mode
+        (2, 16, 2432, 2432),          # a multiple of both tiles
+        (1, 16, 77, 77),              # fewer rows than one block
+        (2, 16, S_PATH, 1),           # one key
+        (2, 16, S_PATH, 64),
+        (2, 16, S_PATH, 1984),
+    ])
+    def test_grid_tiles_and_shared_memory(self, batch, heads, s, kv):
+        geo = pa.kernel_geometry(batch, heads, s, kv)
+        gx, gy, gz = geo["grid"]
+        assert (gy, gz) == (heads, batch)
+        # every query row has a block, and no block is without rows
+        assert (gx - 1) * pa.BLOCK_Q < s <= gx * pa.BLOCK_Q
+        tiles = geo["key_tiles"]
+        assert tiles >= 1
+        assert (tiles - 1) * pa.BLOCK_K < kv <= tiles * pa.BLOCK_K
+        assert geo["masked_keys_in_last_tile"] == tiles * pa.BLOCK_K - kv
+        assert 0 <= geo["masked_keys_in_last_tile"] < pa.BLOCK_K
+        assert geo["smem_bytes"] <= pa.MAX_SMEM_BYTES
+        # q, the K/V ring, the barriers and the alignment slack
+        tile = pa.BLOCK_K * pa.HEAD_DIM * 2
+        assert geo["smem_bytes"] >= (pa.BLOCK_Q * pa.HEAD_DIM * 2
+                                     + 2 * pa.STAGES * tile)
+        assert gy <= 65535 and gz <= 65535
+
+    def test_path_shape_numbers(self):
+        geo = pa.kernel_geometry(8, 16, S_PATH, S_PATH)
+        assert geo["grid"] == (-(-S_PATH // pa.BLOCK_Q), 16, 8)
+        assert geo["key_tiles"] == -(-S_PATH // pa.BLOCK_K)
+        assert pa.STAGES >= 3 and pa.HEAD_DIM == 64
+
+
+def _cpu_bhsd(b, h, s, d=64):
+    return torch.zeros((b, h, s, d), dtype=torch.bfloat16)
+
+
+class TestTensorMapOperands:
+    """What a tensor map can describe is accepted without a copy; what it
+    cannot describe raises in the wrapper's check."""
+
+    def test_views_of_a_fused_projection(self):
+        qkv = torch.zeros((2, 19, 3 * 4 * 64), dtype=torch.bfloat16)
+        for name, t in zip("qkv", pa.split_heads(qkv, 4, 64)):
+            assert not t.is_contiguous()
+            got = pa.tma_operand_strides(name, t.shape, t.stride(),
+                                         t.data_ptr())
+            assert got == (19 * 768, 64, 768)
+
+    def test_contiguous_and_bshd_storage(self):
+        t = _cpu_bhsd(2, 3, 10)
+        assert pa.tma_operand_strides("q", t.shape, t.stride(),
+                                      t.data_ptr()) == (1920, 640, 64)
+        u = torch.zeros((2, 10, 3, 64), dtype=torch.bfloat16
+                        ).permute(0, 2, 1, 3)
+        assert pa.tma_operand_strides("q", u.shape, u.stride(),
+                                      u.data_ptr()) == (1920, 64, 192)
+
+    def test_window_of_a_longer_buffer(self):
+        t = _cpu_bhsd(2, 3, 50)[:, :, 8:18]
+        assert pa.tma_operand_strides("k", t.shape, t.stride(),
+                                      t.data_ptr()) == (9600, 3200, 64)
+
+    def test_stride_of_a_size_one_dimension_is_ignored(self):
+        t = _cpu_bhsd(1, 1, 10)
+        got = pa.tma_operand_strides("q", t.shape, (7, 3, 64, 1),
+                                     t.data_ptr())
+        assert got == (64, 64, 64)
+
+    @pytest.mark.parametrize("case", ["transposed", "row_stride", "offset",
+                                      "broadcast", "head_dim", "rank"])
+    def test_what_a_map_cannot_describe_raises(self, case):
+        base = torch.zeros(1 << 16, dtype=torch.bfloat16)
+        if case == "transposed":         # rows of D are not contiguous
+            t = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16
+                            ).transpose(2, 3)
+        elif case == "row_stride":       # 68 elements: not 16-byte steps
+            t = base.as_strided((1, 2, 10, 64), (8192, 2720, 68, 1))
+        elif case == "offset":           # base 8 bytes off a 16-byte line
+            t = base.as_strided((1, 2, 10, 64), (8192, 640, 64, 1), 4)
+        elif case == "broadcast":        # a zero stride
+            t = torch.zeros((1, 1, 10, 64), dtype=torch.bfloat16
+                            ).expand(1, 4, 10, 64)
+        elif case == "head_dim":
+            t = torch.zeros((1, 2, 10, 32), dtype=torch.bfloat16)
+        else:
+            t = torch.zeros((2, 10, 64), dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            pa.tma_operand_strides("k", t.shape, t.stride(), t.data_ptr())

@@ -242,3 +242,87 @@ class TestFusedConvHead:
             np.testing.assert_allclose(grads[0][k].numpy(),
                                        grads[1][k].numpy(), rtol=1e-3,
                                        atol=1e-4, err_msg=k)
+
+
+# ------------------------------------------------- host side of the kernel
+
+class TestKernelGeometry:
+    """The grid, TMA boxes and shared-memory arithmetic the CUDA kernel is
+    launched with (pure Python; the kernel itself runs only on the card)."""
+
+    @pytest.mark.parametrize("shape,feat", [
+        ((8, 74, 132, 256), 256),      # fusion_1
+        ((8, 148, 264, 256), 256),     # fusion_0
+        ((8, 296, 528, 256), 128),     # head_conv1
+        ((1, 13, 21, 48), 40),         # ragged everywhere, a short chunk
+        ((1, 5, 7, 64), 64),           # smaller than one tile
+        ((2, 20, 33, 256), 136),       # F a multiple of no feature block
+    ])
+    def test_grid_boxes_and_shared_memory(self, shape, feat):
+        b, h, w, c = shape
+        geo = pc.kernel_geometry(b, h, w, c, feat)
+        gx, gy, gz = geo["grid"]
+        assert (gx - 1) * pc.TILE_W < w <= gx * pc.TILE_W
+        assert (gy - 1) * pc.TILE_H < h <= gy * pc.TILE_H
+        nfb = geo["feature_blocks"]
+        assert gz == b * nfb
+        assert (nfb - 1) * pc.BLOCK_F < feat <= nfb * pc.BLOCK_F
+        chunks = geo["chunks"]
+        assert (chunks - 1) * pc.CHUNK_C < c <= chunks * pc.CHUNK_C
+        assert geo["depth_steps"] == 9 * geo["chunks"]
+        # a box row is one 128-byte swizzle line; a box dimension holds at
+        # most 256 elements
+        assert geo["patch_box"] == (64, pc.TILE_W + 2, pc.TILE_H + 2, 1)
+        assert geo["weight_box"] == (64, pc.BLOCK_F, 1)
+        assert geo["patch_box"][0] * 2 == 128 == geo["weight_box"][0] * 2
+        assert max(geo["patch_box"] + geo["weight_box"]) <= 256
+        assert geo["smem_bytes"] <= pc.MAX_SMEM_BYTES
+        patch = geo["patch_box"][1] * geo["patch_box"][2] * 128
+        assert geo["smem_bytes"] >= 2 * patch + pc.W_SLOTS * pc.BLOCK_F * 128
+        assert 0 < geo["stored_share"] <= 1
+        assert geo["stored_share"] == pytest.approx(
+            h * w / (gx * gy * pc.TILE_H * pc.TILE_W))
+        assert gy <= 65535 and gz <= 65535
+
+    def test_launch_limits_raise(self):
+        # the grid's z dimension: batch x feature blocks
+        assert pc.kernel_geometry(40000, 4, 4, 8, 256)["grid"][2] > 65535
+
+
+class TestPackedWeight:
+    @pytest.mark.parametrize("c,feat", [(16, 8), (48, 40), (8, 136)])
+    def test_round_trip_against_txr_packing(self, c, feat):
+        """The port packs (9, F, C), txr (3, C, 3F) as
+        transpose(w, (1, 2, 0, 3)); both hold the same bf16 values, and HWIO
+        comes back from either."""
+        w = _rand((3, 3, c, feat), 21, 0.3)
+        wp = pc.pack_weight(torch.from_numpy(w))
+        assert wp.shape == (9, feat, c) and wp.is_contiguous()
+        back = wp.reshape(3, 3, feat, c).permute(0, 1, 3, 2)      # HWIO
+        assert torch.equal(back, torch.from_numpy(w).to(torch.bfloat16))
+        txr_packed = np.asarray(jnp.transpose(
+            jnp.asarray(w), (1, 2, 0, 3)).reshape(3, c, 3 * feat).astype(
+                jnp.bfloat16).astype(jnp.float32))
+        mine = back.permute(1, 2, 0, 3).reshape(3, c, 3 * feat).float()
+        np.testing.assert_array_equal(mine.numpy(), txr_packed)
+
+    @pytest.mark.parametrize("relu_in", [False, True])
+    def test_products_from_the_packed_weight_equal_the_reference(self,
+                                                                relu_in):
+        """The kernel's sum, written out on the packed layout: nine shifted
+        (pixels x C) @ (C x F) products plus the bias; f32 2e-4 on the
+        bf16-rounded weight."""
+        x = torch.from_numpy(_rand((1, 6, 7, 16), 22))
+        w = torch.from_numpy(_rand((3, 3, 16, 24), 23, 0.3)
+                             ).to(torch.bfloat16).float()
+        b = torch.from_numpy(_rand((24,), 24))
+        wp = pc.pack_weight(w).float()
+        xin = torch.relu(x) if relu_in else x
+        xpad = torch.nn.functional.pad(xin, (0, 0, 1, 1, 1, 1))
+        out = b.expand(1, 6, 7, 24).clone()
+        for tap in range(9):
+            di, dj = divmod(tap, 3)
+            out += xpad[:, di:di + 6, dj:dj + 7] @ wp[tap].t()
+        np.testing.assert_allclose(
+            out.numpy(), pc.conv3x3_reference(x, w, b, relu_in).numpy(),
+            **TOL)

@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Stand-alone check for work on one CUDA kernel of ``txr_torch``.
+
+    timeout 240 python3 tools/kernel_dev.py attention
+    timeout 240 python3 tools/kernel_dev.py conv
+
+builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
+the chosen source (registers, spills, and the "wgmma ... serialized"
+warnings that cost most of the speed when they appear), holds the kernel
+against its plain version at a few small and ragged shapes and at a path
+shape, and times it against its library call in one interleaved loop. It is
+the short first run of a changed kernel: a wrong mbarrier phase hangs
+rather than fails, so run it under ``timeout`` before ``chip_smoke.py``.
+Needs one CUDA device; tolerances are ``chip_smoke.py``'s.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch
+import torch.nn.functional as F
+
+import txr_torch._cuda as kernels
+from chip_smoke import ATTN_TOL, CONV_TOL, compare, time_spread
+from txr_torch.ops.attention import (attention_flash, attention_plain,
+                                     attention_reference, fused_attention,
+                                     split_heads)
+from txr_torch.ops.conv_stripe import (conv3x3_reference, conv3x3_stripe,
+                                       pack_weight)
+
+HEADS, HEAD_DIM = 16, 64
+
+
+def ptxas_lines(source: str) -> None:
+    log = kernels.build_log
+    start = log.find(f"== {source} ==")
+    end = log.find("\n== ", start + 1)
+    for line in log[start:end if end > 0 else None].splitlines():
+        if any(key in line for key in ("==", "C75", "Used", "spill")):
+            print(line[:200], flush=True)
+
+
+def check(name, got, want, tol) -> bool:
+    """One ``kernel_check`` line; False instead of an exception."""
+    try:
+        compare(name.split()[0], name, got, want, **tol)
+    except AssertionError as exc:
+        print(f"FAIL {exc}", flush=True)
+        return False
+    return True
+
+
+def spread(fns: dict) -> None:
+    """min / median / max ms of each function, timed in turns."""
+    for n, t in time_spread(fns).items():
+        print(f"{n:10s} min {t['min']:.4f} median {t['median']:.4f} "
+              f"max {t['max']:.4f} ms", flush=True)
+
+
+def attention(gen) -> bool:
+    tol = ATTN_TOL
+
+    def qkv(b, s, h=HEADS):
+        x = torch.randn((b, s, 3 * h * HEAD_DIM), generator=gen,
+                        device="cuda")
+        x[..., :h * HEAD_DIM] *= 3.0          # a peaked softmax
+        return x.to(torch.bfloat16)
+
+    ok = True
+    x = qkv(2, 2443)
+    for kv in (None, 1, 64, 1984, 2000):
+        ok &= check(f"attention S=2443 kv_len={kv}",
+                    fused_attention(x, HEADS, HEAD_DIM, kv),
+                    attention_reference(x, HEADS, HEAD_DIM, kv), tol)
+    for s in (77, 256, 2432):
+        xs = x[:1, :s].contiguous()
+        ok &= check(f"attention S={s}", fused_attention(xs, HEADS, HEAD_DIM),
+                    attention_reference(xs, HEADS, HEAD_DIM), tol)
+    q, k, v = split_heads(qkv(2, 2443, 15), 15, HEAD_DIM)
+    ok &= check("attention_bhsd views, 15 heads", attention_flash(q, k, v),
+                attention_plain(q, k, v), tol)
+    ok &= torch.equal(fused_attention(x, HEADS, HEAD_DIM),
+                      fused_attention(x, HEADS, HEAD_DIM))
+    if ok:
+        x = qkv(8, 2443)
+        q, k, v = split_heads(x, HEADS, HEAD_DIM)
+        spread({"kernel": lambda: fused_attention(x, HEADS, HEAD_DIM),
+                "library": lambda: F.scaled_dot_product_attention(q, k, v)})
+    return ok
+
+
+def conv(gen) -> bool:
+    tol = CONV_TOL
+
+    def operands(b, h, w, c, f):
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        wgt = torch.randn((3, 3, c, f), generator=gen, device="cuda")
+        bias = torch.randn((f,), generator=gen, device="cuda")
+        return (x.to(torch.bfloat16),
+                (wgt * (9 * c) ** -0.5).to(torch.bfloat16),
+                bias.to(torch.bfloat16))
+
+    ok = True
+    for shape in ((1, 16, 16, 64, 128), (1, 13, 21, 48, 40),
+                  (1, 5, 7, 64, 64), (2, 20, 33, 256, 136),
+                  (2, 74, 132, 256, 256)):
+        x, wgt, bias = operands(*shape)
+        for relu in (False, True):
+            got = conv3x3_stripe(x, wgt, bias, relu)
+            ok &= check(f"conv3x3 {shape} relu_in={relu}", got,
+                        conv3x3_reference(x.float(), wgt.float(),
+                                          bias.float(), relu), tol)
+            ok &= torch.equal(got, conv3x3_stripe(x, wgt, bias, relu))
+    if ok:
+        for h, w, f, relu in ((74, 132, 256, True), (148, 264, 256, True),
+                              (296, 528, 128, False)):
+            x, wgt, bias = operands(8, h, w, 256, f)
+            packed = pack_weight(wgt)
+            xc = x.permute(0, 3, 1, 2)
+            wk = wgt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            print(f"(8, {h}, {w}, 256 -> {f}) relu_in={relu}")
+            spread({"kernel": lambda: conv3x3_stripe(x, wgt, bias, relu,
+                                                     packed),
+                    "library": lambda: F.conv2d(F.relu(xc) if relu else xc,
+                                                wk, bias, padding=1)})
+    return ok
+
+
+def main() -> int:
+    which = sys.argv[1] if len(sys.argv) > 1 else ""
+    if which not in ("attention", "conv"):
+        print(__doc__)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_dev: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build(verbose=True)
+    ptxas_lines("attention.cu" if which == "attention" else "conv3x3.cu")
+    kernels.lib()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = attention(gen) if which == "attention" else conv(gen)
+    print("ok" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -122,7 +122,7 @@ def build(verbose: bool = False) -> Path:
     tmp = work / out.name
     link = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-         *[str(obj) for _, obj, _ in procs]],
+         *[str(obj) for _, obj, _ in procs], "-ldl"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     build_log += f"\n== link ==\n{link.stdout}"
     if link.returncode != 0:
@@ -154,6 +154,9 @@ def _declare(h: ctypes.CDLL) -> None:
     # (qkv, out, B, S, H, kv_len, scale, stream)
     h.txr_attention_fwd.argtypes = [p, p, i, i, i, i, f, p]
     h.txr_attention_fwd.restype = i
+    # (out[4]: query rows per block, keys per tile, smem bytes, threads)
+    h.txr_attention_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_attention_geometry.restype = None
     # (q, k, v, out, B, H, S, kv_len, scale, strides[12], stream)
     h.txr_attention_bhsd_fwd.argtypes = [p, p, p, p, i, i, i, i, f,
                                          ctypes.POINTER(ll), p]
@@ -161,6 +164,9 @@ def _declare(h: ctypes.CDLL) -> None:
     # (x, wq, sw, bias, xq, sx, out, M, K, N, stream)
     h.txr_int8_linear_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     h.txr_int8_linear_fwd.restype = i
+    # (out[4]: tile height, tile width, features per block, smem bytes)
+    h.txr_conv3x3_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_conv3x3_geometry.restype = None
     # (x, wp, bias, out, B, H, W, C, F, relu_in, stream)
     h.txr_conv3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     h.txr_conv3x3_fwd.restype = i

@@ -6,321 +6,397 @@
 // with q, k, v read in place from the (B, S, 3*H*D) component-major
 // projection and the result written as (B, S, H*D); and, through the second
 // entry point, txr/ops/attention.py:_flash_kernel: the same function on q,
-// k, v of shape (B, H, S, D).  One kernel serves both: it addresses each
-// operand by a base pointer and three strides (batch, head, row), so the
-// (B, H, S, D) operands may be views of any layout whose rows of D elements
-// are contiguous, such as the slices a ViT takes from its fused projection,
-// and need no copy.
+// k, v of shape (B, H, S, D).  One kernel serves both: each operand is
+// described by a 4-D tensor map over (D, S, heads, B) with its own byte
+// strides, so the (B, H, S, D) operands may be views of any layout whose
+// rows of D elements are contiguous and whose strides are multiples of 16
+// bytes, such as the slices a ViT takes from its fused projection, and need
+// no copy.
 //
 // Bound on this card: operations.  4*B*H*S^2*D flop per launch against
 // roughly 12*B*S*H*D bytes puts the work far above the bf16 ridge, so the
-// tensor cores are the limit and device-memory traffic is not.
+// tensor cores are the limit; B*H*S^2 exponentials at 16 per clock per SM
+// take about as long as the products at their full rate, so the two must
+// overlap.
 //
-// Design: a (S x S) f32 score row does not fit registers or shared memory,
-// so key tiles stream through an online softmax (running row max and row
-// sum in f32, the accumulator rescaled when the max moves).  One block owns
-// 128 query rows of one (batch, head): eight warps, sixteen rows each, the
-// q fragments held in registers for the whole pass.  K and V tiles of 64
-// keys are double buffered in shared memory with cp.async, so the loads of
-// tile j+1 overlap the products of tile j.  Both products are
-// mma.sync.m16n8k16 bf16 with f32 accumulation; the probabilities are
-// rounded to bf16 only as the A operand of the P.V product, and the score
-// accumulators are reused as that operand without a trip through memory.
-// S = 2443 is a multiple of no tile, so the ragged last tile is masked
-// against kv_len (rows past it are zero filled on load and their scores set
-// to a large negative value); there is no padding of the sequence.
-// wgmma, TMA and a persistent schedule are left for a later revision.
+// Design.  A block owns 192 query rows of one (batch, head) and streams the
+// keys in tiles of 128 through an online softmax (running row max and row
+// sum in f32, the accumulator rescaled when the max moves).
+//   * Both products are wgmma (f32 accumulators).  A consumer warpgroup
+//     owns 64 query rows, so a K or V tile leaves shared memory once per 64
+//     rows, and once loaded it serves three warpgroups.  q k^T: q (loaded
+//     once) and the K tile are shared-memory operands, K-major, rows of
+//     D = 64 bf16 = 128 bytes under the 128-byte swizzle (m64n128k16, four
+//     depth steps).  p v: the probabilities stay in registers (the score
+//     accumulators packed to bf16 are the A fragments), the V tile is the B
+//     operand in its own layout (D contiguous = MN-major, the instruction's
+//     transpose flag), so nothing is transposed (m64n64k16, eight depth
+//     steps).
+//   * Loads are off the compute warps: one thread of a producer warpgroup
+//     starts TMA tile loads into a ring of three K/V stages and completion
+//     arrives on mbarriers; consumers hand a stage back through an "empty"
+//     mbarrier.  setmaxnreg gives the producer's registers to the
+//     consumers (32 / 160: 64 score + 32 output + 32 probability registers
+//     per thread and what addresses them).
+//   * Products and softmax overlap inside a warpgroup and across the three:
+//     step j starts the scores of tile j and, right behind them, p v of
+//     tile j - 1, waits for the scores only, and runs the softmax of tile j
+//     (in place in the score registers) while p v and the other
+//     warpgroups' products occupy the tensor cores; the probabilities are
+//     packed once p v has let go of its operand registers.  The loop's
+//     first and last steps are peeled so that every step starts the same
+//     two wgmma groups: when a wgmma is started under a condition the assembler cannot count
+//     the groups in flight and serialises every wgmma.
+//   * S = 2443 is a multiple of no tile.  The tensor map has S as a
+//     dimension of its own, so a tile never runs into the next frame and
+//     rows past S arrive as zeros; keys at or past kv_len are real data
+//     when kv_len < S and are masked in the scores of the last tile (the
+//     only one that can hold them); query rows past S are computed and not
+//     stored.  There is no padding of the sequence.
+// Arithmetic: scores in f32, exp2 with the scale folded into one fma, the
+// probabilities rounded to bf16 only as the A operand, one rounding of the
+// result.  No atomics: results repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "wgmma_utils.cuh"
+
 namespace {
 
-constexpr int D = 64;          // head dimension (every ViT preset)
-constexpr int BM = 128;        // query rows per block
-constexpr int BN = 64;         // keys per tile
-constexpr int LDS = D + 8;     // shared-memory row pitch in elements (144 B):
-                               // makes fragment loads and ldmatrix conflict free
-constexpr int NTHREADS = (BM / 16) * 32;
+using namespace txr;
+
+constexpr int D = 64;            // head dimension (every ViT preset)
+constexpr int NWG = 3;           // consumer warpgroups
+constexpr int BM = 64 * NWG;     // query rows per block: 64 per warpgroup
+constexpr int BN = 128;          // keys per tile
+constexpr int NSTAGES = 3;       // K/V ring
+constexpr int NTHREADS = 128 * (NWG + 1);  // consumers + the producer's
+constexpr int BOX_ROWS = 64;     // rows per TMA box (8 KB)
+constexpr int Q_BYTES = BM * D * 2;
+constexpr int TILE_BYTES = BN * D * 2;
+constexpr int SMEM_BYTES =
+    1024 + Q_BYTES + 2 * NSTAGES * TILE_BYTES + 64 * 8;  // 1024: alignment
 constexpr float NEG_BIG = -1.0e30f;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // src_bytes < 16 zero-fills the remainder of the 16-byte destination.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* smem_row) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(s));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copies `rows` rows of D elements (global pitch `ld` elements) into shared
-// memory with pitch LDS; rows at or past `limit` are zero filled.
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* gmem,
-                                          int64_t ld, int row0, int limit,
-                                          int rows) {
-  for (int c = threadIdx.x; c < rows * (D / 8); c += NTHREADS) {
-    const int r = c >> 3;
-    const int ch = c & 7;
-    const int gr = row0 + r;
-    const bool ok = gr < limit;
-    const bf16* src = gmem + static_cast<int64_t>(ok ? gr : 0) * ld + ch * 8;
-    cp_async16(smem + r * LDS + ch * 8, src, ok ? 16 : 0);
-  }
-}
-
-// Element strides of one operand: batch, head, row (of D contiguous values).
+// Element strides of the output: batch, head, row (of D contiguous values).
 struct Strides {
   int64_t b, h, r;
 };
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     Strides sq, Strides sk, Strides sv, Strides so, int S,
-                     int kv_len, float scale_log2e) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BM x LDS
-  bf16* sK = sQ + BM * LDS;                      // 2 x BN x LDS
-  bf16* sV = sK + 2 * BN * LDS;                  // 2 x BN x LDS
+__global__ void __launch_bounds__(NTHREADS, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     bf16* __restrict__ out, Strides so, int head_q,
+                     int head_k, int head_v, int S, int kv_len,
+                     float scale_log2e) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = base;                             // NWG x 64 rows
+  unsigned char* sK = sQ + Q_BYTES;                     // NSTAGES x BN rows
+  unsigned char* sV = sK + NSTAGES * TILE_BYTES;        // NSTAGES x BN rows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + NSTAGES * TILE_BYTES);
+  uint64_t* bar_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + NSTAGES;
+  uint64_t* empty = full_v + NSTAGES;
 
+  const int tid = threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BM;
-  const bf16* gQ = q + b * sq.b + h * sq.h;
-  const bf16* gK = k + b * sk.b + h * sk.h;
-  const bf16* gV = v + b * sv.b + h * sv.h;
   const int ntiles = (kv_len + BN - 1) / BN;
 
-  load_tile(sQ, gQ, sq.r, q0, S, BM);
-  load_tile(sK, gK, sk.r, 0, kv_len, BN);
-  load_tile(sV, gV, sv.r, 0, kv_len, BN);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // row of the fragment this thread holds
-  const int t = lane & 3;   // column pair of the fragment
-
-  float o[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
-  float m0 = NEG_BIG, m1 = NEG_BIG;  // running max of rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-  uint32_t qf[4][4];
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {
-      load_tile(sK + (buf ^ 1) * BN * LDS, gK, sk.r, (j + 1) * BN, kv_len,
-                BN);
-      load_tile(sV + (buf ^ 1) * BN * LDS, gV, sv.r, (j + 1) * BN, kv_len,
-                BN);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NSTAGES; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 4 * NWG);  // lane 0 of each consumer warp
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: tile j (and q) landed
-    __syncthreads();
-
-    if (j == 0) {
-      const bf16* qr = sQ + (warp * 16 + g) * LDS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 * LDS + kk * 16);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8);
-        qf[kk][3] =
-            *reinterpret_cast<const uint32_t*>(qr + 8 * LDS + kk * 16 + 8);
-      }
-    }
-
-    const bf16* kb = sK + buf * BN * LDS;
-    const bf16* vb = sV + buf * BN * LDS;
-
-    // scores: 16 query rows x 64 keys per warp, f32
-    float s[8][4];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      s[ni][0] = s[ni][1] = s[ni][2] = s[ni][3] = 0.f;
-      const bf16* kr = kb + (ni * 8 + g) * LDS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[ni], qf[kk], b0, b1);
-      }
-    }
-
-    // scale into the exp2 domain, mask the ragged edge, row max
-    const int key0 = j * BN + t * 2;
-    float mx0 = NEG_BIG, mx1 = NEG_BIG;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int key = key0 + ni * 8;
-      const bool ok0 = key < kv_len;
-      const bool ok1 = key + 1 < kv_len;
-      s[ni][0] = ok0 ? s[ni][0] * scale_log2e : NEG_BIG;
-      s[ni][1] = ok1 ? s[ni][1] * scale_log2e : NEG_BIG;
-      s[ni][2] = ok0 ? s[ni][2] * scale_log2e : NEG_BIG;
-      s[ni][3] = ok1 ? s[ni][3] * scale_log2e : NEG_BIG;
-      mx0 = fmaxf(mx0, fmaxf(s[ni][0], s[ni][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[ni][2], s[ni][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0);
-    const float alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      s[ni][0] = exp2f(s[ni][0] - mn0);
-      s[ni][1] = exp2f(s[ni][1] - mn0);
-      s[ni][2] = exp2f(s[ni][2] - mn1);
-      s[ni][3] = exp2f(s[ni][3] - mn1);
-      rs0 += s[ni][0] + s[ni][1];
-      rs1 += s[ni][2] + s[ni][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      o[ni][0] *= alpha0;
-      o[ni][1] *= alpha0;
-      o[ni][2] *= alpha1;
-      o[ni][3] *= alpha1;
-    }
-
-    // o += P V : the score accumulators of two adjacent key octets are the
-    // A fragment of one 16-key step; V comes transposed through ldmatrix.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vr = vb + (kk * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        uint32_t r0, r1, r2, r3;
-        ldmatrix_x4_trans(r0, r1, r2, r3, vr + dn * 16);
-        mma_bf16(o[2 * dn], pa, r0, r1);
-        mma_bf16(o[2 * dn + 1], pa, r2, r3);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const int64_t ldo = so.r;
-  bf16* ob = out + b * so.b + h * so.h + t * 2;
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    if (row0 < S) {
-      *reinterpret_cast<uint32_t*>(ob + row0 * ldo + ni * 8) =
-          pack_bf16(o[ni][0] * inv0, o[ni][1] * inv0);
+  const int wg = tid >> 7;
+  if (wg == NWG) {
+    // ------------------------------------------------------- producer
+    reg_dealloc<32>();
+    if (tid == 128 * NWG) {
+      mbar_arrive_expect_tx(bar_q, Q_BYTES);
+      for (int r = 0; r < BM; r += BOX_ROWS)
+        tma_load_4d(sQ + r * D * 2, &map_q, bar_q, 0, q0 + r, head_q + h, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % NSTAGES;
+        const uint32_t phase = (j / NSTAGES) & 1;
+        mbar_wait(empty + st, phase ^ 1);
+        mbar_arrive_expect_tx(full_k + st, TILE_BYTES);
+        for (int r = 0; r < BN; r += BOX_ROWS)
+          tma_load_4d(sK + st * TILE_BYTES + r * D * 2, &map_k, full_k + st, 0,
+                      j * BN + r, head_k + h, b);
+        mbar_arrive_expect_tx(full_v + st, TILE_BYTES);
+        for (int r = 0; r < BN; r += BOX_ROWS)
+          tma_load_4d(sV + st * TILE_BYTES + r * D * 2, &map_v, full_v + st, 0,
+                      j * BN + r, head_v + h, b);
+      }
     }
-    if (row1 < S) {
-      *reinterpret_cast<uint32_t*>(ob + row1 * ldo + ni * 8) =
-          pack_bf16(o[ni][2] * inv1, o[ni][3] * inv1);
+  } else {
+    // ------------------------------------------------------ consumers
+    reg_alloc<160>();
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;  // row of the fragment this thread holds
+    const int t = lane & 3;   // column pair of the fragment
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m0 = NEG_BIG, m1 = NEG_BIG;  // running max of rows g and g + 8
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+    const uint64_t q_desc = wgmma_desc_sw128(sQ + wg * (64 * D * 2));
+    mbar_wait(bar_q, 0);
+
+    // Software pipeline over the key tiles: step j starts the scores of
+    // tile j and, right behind them, p v of tile j - 1, and runs the
+    // softmax of tile j while p v of tile j - 1 (and the other warpgroups'
+    // products) execute.
+    float s[64];       // scores of the current tile, then its probabilities
+    uint32_t p[8][4];  // probabilities of the previous tile, A fragments
+    float alpha0, alpha1;
+
+    // Online softmax of the tile in `s`, in place; MASK for the tile that
+    // holds kv_len.
+    auto softmax = [&](auto mask, int j) {
+      constexpr bool MASK = decltype(mask)::value;
+      const int key0 = j * BN + t * 2;
+      auto score = [&](int ni, int c) {
+        if (MASK && key0 + ni * 8 + (c & 1) >= kv_len) return NEG_BIG;
+        return s[4 * ni + c];
+      };
+      float mx0 = NEG_BIG, mx1 = NEG_BIG;
+#pragma unroll
+      for (int ni = 0; ni < 16; ++ni) {
+        mx0 = fmaxf(mx0, fmaxf(score(ni, 0), score(ni, 1)));
+        mx1 = fmaxf(mx1, fmaxf(score(ni, 2), score(ni, 3)));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      // exp2 domain: p = 2^(s*c - max*c) with c = scale * log2(e)
+      alpha0 = exp2f((m0 - mn0) * scale_log2e);
+      alpha1 = exp2f((m1 - mn1) * scale_log2e);
+      m0 = mn0;
+      m1 = mn1;
+      const float off0 = -mn0 * scale_log2e;
+      const float off1 = -mn1 * scale_log2e;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 16; ++ni) {
+        s[4 * ni] = exp2f(fmaf(score(ni, 0), scale_log2e, off0));
+        s[4 * ni + 1] = exp2f(fmaf(score(ni, 1), scale_log2e, off0));
+        s[4 * ni + 2] = exp2f(fmaf(score(ni, 2), scale_log2e, off1));
+        s[4 * ni + 3] = exp2f(fmaf(score(ni, 3), scale_log2e, off1));
+        rs0 += s[4 * ni] + s[4 * ni + 1];
+        rs1 += s[4 * ni + 2] + s[4 * ni + 3];
+      }
+      l0 = l0 * alpha0 + rs0;
+      l1 = l1 * alpha1 + rs1;
+    };
+    auto softmax_tile = [&](int j) {
+      if (j == ntiles - 1)  // the only tile that can hold keys >= kv_len
+        softmax(std::true_type{}, j);
+      else
+        softmax(std::false_type{}, j);
+    };
+    // The probabilities, rounded to bf16 only here, as the A fragments of
+    // the eight depth steps of p v (once p v of the tile before is done).
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto start_scores = [&](int st) {
+      const uint64_t k_desc = wgmma_desc_sw128(sK + st * TILE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+      wgmma_commit();
+    };
+    auto start_pv = [&](int st) {
+      const uint64_t v_desc = wgmma_desc_sw128(sV + st * TILE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_m64n64k16_rs_tb(o, p[kk], v_desc + kk * (2048 >> 4), 1);
+      wgmma_commit();
+    };
+    auto fence_pv_operands = [&]() {
+      fence_operands(o);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_operands(p[kk]);
+    };
+
+    // tile 0: scores only (o is zero, so it needs no rescale)
+    mbar_wait(full_k, 0);
+    wgmma_fence();
+    start_scores(0);
+    wgmma_wait<0>();
+    fence_operands(s);
+    softmax_tile(0);
+    pack();
+    // Step j (1 <= j < ntiles): scores of tile j and p v of tile j - 1
+    // started together, then the softmax of tile j under p v.
+    for (int j = 1; j < ntiles; ++j) {
+      const int st = j % NSTAGES;
+      const int st_prev = (j - 1) % NSTAGES;
+      mbar_wait(full_k + st, (j / NSTAGES) & 1);
+      mbar_wait(full_v + st_prev, ((j - 1) / NSTAGES) & 1);
+      fence_pv_operands();
+      wgmma_fence();
+      start_scores(st);
+      start_pv(st_prev);
+      wgmma_wait<1>();  // the scores are there
+      fence_operands(s);
+      softmax_tile(j);
+      wgmma_wait<0>();  // p v of the previous tile is done
+      fence_pv_operands();
+      if (lane == 0) mbar_arrive(empty + st_prev);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        o[4 * ni] *= alpha0;
+        o[4 * ni + 1] *= alpha0;
+        o[4 * ni + 2] *= alpha1;
+        o[4 * ni + 3] *= alpha1;
+      }
+      pack();
+    }
+    {  // p v of the last tile
+      const int st_prev = (ntiles - 1) % NSTAGES;
+      mbar_wait(full_v + st_prev, ((ntiles - 1) / NSTAGES) & 1);
+      fence_pv_operands();
+      wgmma_fence();
+      start_pv(st_prev);
+      wgmma_wait<0>();
+      fence_operands(o);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+
+    const int row0 = q0 + wg * 64 + warp * 16 + g;
+    const int row1 = row0 + 8;
+    bf16* ob = out + b * so.b + h * so.h + t * 2;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      if (row0 < S) {
+        *reinterpret_cast<uint32_t*>(ob + row0 * so.r + ni * 8) =
+            pack_bf16(o[4 * ni] * inv0, o[4 * ni + 1] * inv0);
+      }
+      if (row1 < S) {
+        *reinterpret_cast<uint32_t*>(ob + row1 * so.r + ni * 8) =
+            pack_bf16(o[4 * ni + 2] * inv1, o[4 * ni + 3] * inv1);
+      }
     }
   }
 }
 
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, Strides sq,
-           Strides sk, Strides sv, Strides so, int B, int S, int H, int kv_len,
-           float scale, void* stream) {
-  const size_t smem = static_cast<size_t>(BM + 4 * BN) * LDS * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
+// Tensor map over one operand seen as (D, S, heads, B), innermost first,
+// with a (64, 64, 1, 1) box.  Strides in elements.
+int make_map(CUtensorMap* map, const void* ptr, int S, int heads, int B,
+             int64_t stride_row, int64_t stride_head, int64_t stride_batch) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(stride_row) * 2,
+                               static_cast<uint64_t>(stride_head) * 2,
+                               static_cast<uint64_t>(stride_batch) * 2};
+  const uint32_t box[4] = {D, BOX_ROWS, 1, 1};
+  return encode_bf16_map(map, ptr, 4, dims, strides, box);
+}
+
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           bf16* out, Strides so, int head_q, int head_k, int head_v, int B,
+           int S, int H, int kv_len, float scale, void* stream) {
+  // per launch: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
       attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + BM - 1) / BM, H, B);
-  attention_fwd_kernel<<<grid, NTHREADS, smem,
+  attention_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
                          static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, sq, sk, sv, so, S, kv_len, scale * 1.4426950408889634f);
+      mq, mk, mv, out, so, head_q, head_k, head_v, S, kv_len,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Geometry of the kernel, for the host side to check against: query rows per
+// block, keys per tile, dynamic shared-memory bytes, threads per block.
+extern "C" void txr_attention_geometry(int* out4) {
+  out4[0] = BM;
+  out4[1] = BN;
+  out4[2] = SMEM_BYTES;
+  out4[3] = NTHREADS;
+}
+
+
 // qkv: (B, S, 3*H*64) bf16 contiguous, 16-byte aligned; out: (B, S, H*64).
-// 1 <= kv_len <= S.  Returns the launch's cudaError_t (0 on success).
+// 1 <= kv_len <= S.  Returns a cudaError_t (0 on success).
 extern "C" int txr_attention_fwd(const void* qkv, void* out, int B, int S,
                                  int H, int kv_len, float scale,
                                  void* stream) {
   const int64_t ld = static_cast<int64_t>(3) * H * D;
-  const Strides in = {static_cast<int64_t>(S) * ld, D, ld};
+  CUtensorMap map;  // q, k and v are head ranges of one map
+  const int rc = make_map(&map, qkv, S, 3 * H, B, ld, D, S * ld);
+  if (rc != 0) return rc;
   const Strides so = {static_cast<int64_t>(S) * H * D, D,
                       static_cast<int64_t>(H) * D};
-  const bf16* base = static_cast<const bf16*>(qkv);
-  return launch(base, base + H * D, base + 2 * H * D, static_cast<bf16*>(out),
-                in, in, in, so, B, S, H, kv_len, scale, stream);
+  return launch(map, map, map, static_cast<bf16*>(out), so, 0, H, 2 * H, B, S,
+                H, kv_len, scale, stream);
 }
 
 // q, k, v, out: (B, H, S, 64) bf16 views.  strides: twelve element strides,
 // (batch, head, row) of q, k, v and out in that order; every row of 64
-// values is contiguous and 16-byte aligned.  1 <= kv_len <= S.  Returns the
-// launch's cudaError_t (0 on success).
+// values is contiguous, the bases are 16-byte aligned and the strides of q,
+// k and v are non-zero multiples of 8 elements.  1 <= kv_len <= S.  Returns
+// a cudaError_t (0 on success).
 extern "C" int txr_attention_bhsd_fwd(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int S, int kv_len, float scale,
                                       const long long* strides, void* stream) {
-  Strides s[4];
-  for (int i = 0; i < 4; ++i)
-    s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), s[0],
-                s[1], s[2], s[3], B, S, H, kv_len, scale, stream);
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = make_map(&maps[i], ptrs[i], S, H, B, strides[3 * i + 2],
+                            strides[3 * i + 1], strides[3 * i]);
+    if (rc != 0) return rc;
+  }
+  const Strides so = {strides[9], strides[10], strides[11]};
+  return launch(maps[0], maps[1], maps[2], static_cast<bf16*>(out), so, 0, 0,
+                0, B, S, H, kv_len, scale, stream);
 }

@@ -9,36 +9,52 @@
 //
 // Bound on this card: operations.  2*9*C*F flop per output pixel against
 // about 2*(C + F) bytes is far above the bf16 ridge at C = 256, so the
-// tensor cores are the limit.
+// tensor cores are the limit.  What stands in their way is operand traffic:
+// the whole 3 x 3 kernel is 9*C*F*2 bytes = 1.18 MB at C = F = 256, far more
+// than shared memory, so every block streams its weight slices from L2, and
+// the fewer output pixels a block owns the more weight bytes each flop
+// costs.
 //
 // Design.  The TPU kernel's flat stripes, two row-block refs and (3, C, 3F)
 // packed weight answer that machine's sublane alignment and are not carried
 // over.  Here the convolution is an implicit matrix product with the output
 // pixels as rows, the features as columns and (tap, channel) as the depth.
-// A block owns an 8 x 16 tile of output pixels and 128 features; eight
-// warps, each four tile rows (four m16 tiles) by 32 features.  The whole
-// 3 x 3 kernel is 9*C*F*2 bytes = 1.18 MB at C = F = 256 and the halo patch
-// of all channels 92 KB, so both are chunked through shared memory: the
-// depth loop walks channel chunks of 64 and, inside a chunk, the nine taps.
-// The (8+2) x (16+2) pixel halo patch of one channel chunk is double
-// buffered and serves nine iterations; the (128 features x 64 channels)
-// weight slice of one (chunk, tap) goes through a three-slot ring.  All
-// copies are 16-byte cp.async; a copy whose source lies outside the image,
-// past C or past F has source size 0, which zero fills: that is the conv's
-// padding and the ragged edge in one mechanism.  Fragments come from shared
-// memory with ldmatrix (rows padded to 144 bytes, conflict free); a tap
-// only shifts the patch address.  ReLU is applied to the A fragments in
-// registers by clearing the bf16 halves whose sign bit is set.  Products
-// are mma.sync.m16n8k16 bf16 with f32 accumulators; bias is added in f32
-// and the result rounded once.  H = 74 and W = 132 / 264 / 528 are
-// multiples of no tile: pixels past the edge are computed and not stored.
-// wgmma, TMA and weight reuse across tiles are left for a later revision.
+//   * A block owns a 16 x 16 tile of output pixels and 128 features: 256
+//     rows per 16 KB weight slice, twice the reuse of a 128-pixel tile, so
+//     the weight bytes per flop are halved.  Two consumer warpgroups take
+//     eight tile rows each, as two 64-row wgmma tiles (four tile rows of 16
+//     pixels; a warp's 16 rows are one tile row).
+//   * The products are wgmma m64n128k16 with f32 accumulators (128 per
+//     thread).  The weights are the B operand straight from shared memory:
+//     (9, F, C) packed, C contiguous, so a 64-channel slice of 128 features
+//     is 128 rows of 128 bytes under the 128-byte swizzle.  The pixels are
+//     the A operand from registers: a tap is an address shift of whole
+//     pixels in the halo patch, which no shared-memory descriptor can
+//     express for 64 rows spanning four tile rows, while ldmatrix takes a
+//     row address per lane; and ReLU is applied to the fragments in
+//     registers (one max.bf16x2 against zero per register).  Two
+//     fragment sets alternate, so the loads of one depth step (a tap of a
+//     chunk: eight wgmma) run under the products of the step before.
+//   * Loads are off the compute warps: one thread of a producer warpgroup
+//     starts TMA loads, completion arrives on mbarriers, and setmaxnreg
+//     hands its registers to the consumers (24 / 240).  The (16+2) x (16+2)
+//     pixel halo patch of one 64-channel chunk is one 4-D box over
+//     (C, W, H, B), double buffered; it serves nine taps.  A box that
+//     reaches outside the image, negative coordinates included, or past C
+//     is zero filled: that is the conv's padding, the ragged tile edge and
+//     the short last chunk in one mechanism.  The weight slice of one
+//     (chunk, tap) is a 3-D box over (C, F, 9), zero filled past C and F,
+//     through a four-slot ring.
+//   * Bias is added in f32 and the result rounded once.  H = 74 and W = 132
+//     are multiples of no tile: pixels past the edge are computed and not
+//     stored.  No atomics: results repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_utils.cuh"
+#include "wgmma_utils.cuh"
 
 namespace {
 
@@ -46,198 +62,264 @@ using namespace txr;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TH = 8;                 // tile height in output pixels
-constexpr int TW = 16;                // tile width: one m16 tile per row
+constexpr int TH = 16;                // tile height in output pixels
+constexpr int TW = 16;                // tile width: one warp's 16 rows
 constexpr int PH = TH + 2;
 constexpr int PW = TW + 2;
 constexpr int NPIX = PH * PW;         // halo patch pixels
-constexpr int CK = 64;                // channels per chunk
-constexpr int PITCH = CK + 8;         // shared-memory row pitch in elements
+constexpr int CK = 64;                // channels per chunk: 128-byte rows
 constexpr int BN = 128;               // features per block
-constexpr int WSLOTS = 3;
-constexpr int NTHREADS = 256;
-constexpr int PATCH_ELEMS = NPIX * PITCH;
-constexpr int W_ELEMS = BN * PITCH;
-constexpr int SMEM_BYTES = (2 * PATCH_ELEMS + WSLOTS * W_ELEMS) * 2;
+constexpr int WSLOTS = 4;
+constexpr int NTHREADS = 384;         // two consumer warpgroups + producer
+constexpr int PATCH_TX = NPIX * CK * 2;                    // bytes per box
+constexpr int PATCH_BYTES = (PATCH_TX + 1023) / 1024 * 1024;
+constexpr int W_BYTES = BN * CK * 2;
+constexpr int SMEM_BYTES =
+    1024 + 2 * PATCH_BYTES + WSLOTS * W_BYTES + 64 * 8;  // 1024: alignment
 
+// ReLU of two packed bf16 values: one max against +0.
 __device__ __forceinline__ uint32_t relu_bf16x2(uint32_t v) {
-  // 0xffff in each half whose sign bit is set
-  const uint32_t neg = ((v >> 15) & 0x00010001u) * 0xffffu;
-  return v & ~neg;
+  uint32_t r;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
+  return r;
 }
 
 template <bool RELU>
-__global__ void __launch_bounds__(NTHREADS, 2)
-conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
                const float* __restrict__ bias, bf16* __restrict__ out, int H,
                int W, int C, int F, int nfb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sP = reinterpret_cast<bf16*>(smem_raw);  // 2 x NPIX x PITCH
-  bf16* sW = sP + 2 * PATCH_ELEMS;               // WSLOTS x BN x PITCH
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sP = base;                       // 2 x NPIX rows of 128 B
+  unsigned char* sW = sP + 2 * PATCH_BYTES;       // WSLOTS x BN rows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sW + WSLOTS * W_BYTES);
+  uint64_t* full_p = bars;
+  uint64_t* empty_p = bars + 2;
+  uint64_t* full_w = bars + 4;
+  uint64_t* empty_w = full_w + WSLOTS;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z / nfb;
   const int f0 = (blockIdx.z - b * nfb) * BN;
   const int ty0 = blockIdx.y * TH;
   const int tx0 = blockIdx.x * TW;
-  const bf16* xb = x + static_cast<int64_t>(b) * H * W * C;
   const int nchunks = (C + CK - 1) / CK;
   const int niter = nchunks * 9;
 
-  auto load_patch = [&](int buf, int cc) {
-    bf16* dst = sP + buf * PATCH_ELEMS;
-    for (int u = tid; u < NPIX * (CK / 8); u += NTHREADS) {
-      const int p = u >> 3;
-      const int ch = u & 7;
-      const int prow = p / PW;
-      const int pcol = p - prow * PW;
-      const int iy = ty0 - 1 + prow;
-      const int ix = tx0 - 1 + pcol;
-      const int c = cc * CK + ch * 8;
-      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && c < C;
-      const bf16* src =
-          xb + (ok ? (static_cast<int64_t>(iy) * W + ix) * C + c : int64_t(0));
-      cp_async16(dst + p * PITCH + ch * 8, src, ok ? 16 : 0);
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full_p + i, 1);
+      mbar_init(empty_p + i, 8);  // lane 0 of each of the 8 consumer warps
     }
-  };
-  auto load_weights = [&](int slot, int it) {
-    const int cc = it / 9;
-    const int tap = it - cc * 9;
-    bf16* dst = sW + slot * W_ELEMS;
-    for (int u = tid; u < BN * (CK / 8); u += NTHREADS) {
-      const int r = u >> 3;
-      const int ch = u & 7;
-      const int f = f0 + r;
-      const int c = cc * CK + ch * 8;
-      const bool ok = f < F && c < C;
-      const bf16* src =
-          wp + (ok ? (static_cast<int64_t>(tap) * F + f) * C + c : int64_t(0));
-      cp_async16(dst + r * PITCH + ch * 8, src, ok ? 16 : 0);
+    for (int i = 0; i < WSLOTS; ++i) {
+      mbar_init(full_w + i, 1);
+      mbar_init(empty_w + i, 8);
     }
-  };
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  load_patch(0, 0);
-  load_weights(0, 0);
-  cp_async_commit();
-  if (niter > 1) load_weights(1, 1);
-  cp_async_commit();
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    reg_dealloc<24>();
+    if (tid == 256) {
+      auto load_patch = [&](int cc) {
+        const int buf = cc & 1;
+        mbar_wait(empty_p + buf, ((cc >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_p + buf, PATCH_TX);
+        tma_load_4d(sP + buf * PATCH_BYTES, &map_x, full_p + buf, cc * CK,
+                    tx0 - 1, ty0 - 1, b);
+      };
+      load_patch(0);
+      for (int it = 0; it < niter; ++it) {
+        const int cc = it / 9;
+        const int tap = it - cc * 9;
+        const int slot = it % WSLOTS;
+        mbar_wait(empty_w + slot, ((it / WSLOTS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_w + slot, W_BYTES);
+        tma_load_3d(sW + slot * W_BYTES, &map_w, full_w + slot, cc * CK, f0,
+                    tap);
+        // the next chunk's patch, once this chunk's last slice is under
+        // way: its buffer was freed when the chunk before this one ended
+        if (tap == 8 && cc + 1 < nchunks) load_patch(cc + 1);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    reg_alloc<240>();
+    const int warp = (tid & 127) >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = warp >> 2;  // 0..1: tile rows 4*wm .. 4*wm+3
-  const int wn = warp & 3;   // 0..3: features 32*wn .. 32*wn+31
-
-  float acc[4][4][4];
+    // acc[m]: tile rows wg*8 + m*4 + warp, 16 pixels x 128 features
+    float acc[2][64];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+    // A fragments of the two 64-row tiles, two sets: the products of one
+    // depth step read one set while the loads of the next fill the other
+    uint32_t fa[2][4][4], fb[2][4][4];
 
-  // lane-constant parts of the ldmatrix addresses (elements)
-  const int a_off = (wm * 4 * PW + (lane & 15)) * PITCH + (lane >> 4) * 8;
-  const int b_off =
-      (wn * 32 + (lane & 7) + ((lane >> 4) & 1) * 8) * PITCH +
-      ((lane >> 3) & 1) * 8;
-
-  for (int it = 0; it < niter; ++it) {
-    const int cc = it / 9;
-    const int tap = it - cc * 9;
-    cp_async_wait<1>();  // all but the newest group: iteration `it` landed
-    __syncthreads();     // ... for every thread; iteration it-1 is done
-    if (it + 2 < niter) load_weights((it + 2) % WSLOTS, it + 2);
-    if (tap == 0 && cc + 1 < nchunks) load_patch((cc + 1) & 1, cc + 1);
-    cp_async_commit();
-
-    const int di = tap / 3;
-    const int dj = tap - di * 3;
-    const bf16* pa = sP + (cc & 1) * PATCH_ELEMS + a_off +
-                     (di * PW + dj) * PITCH;
-    const bf16* pb = sW + (it % WSLOTS) * W_ELEMS + b_off;
+    // A fragments of tile row `row` shifted by a tap: lane l addresses
+    // pixel (l & 15) of the row, channel half (l >> 4) of each 16-channel
+    // step; the 16-byte chunk index is swizzled with the patch row.
+    auto load_a = [&](uint32_t (&a)[4][4], const unsigned char* patch,
+                      int row, int di, int dj) {
+      const int p = (row + di) * PW + (lane & 15) + dj;
+      const unsigned char* prow = patch + p * 128;
+      const int sw = p & 7;
 #pragma unroll
-    for (int kk = 0; kk < CK / 16; ++kk) {
-      uint32_t af[4][4];
-      uint32_t bq[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        ldmatrix_x4(af[mt], pa + mt * PW * PITCH + kk * 16);
+      for (int kk = 0; kk < CK / 16; ++kk) {
+        ldmatrix_x4(a[kk], prow + (((kk * 2 + (lane >> 4)) ^ sw) << 4));
         if (RELU) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) af[mt][i] = relu_bf16x2(af[mt][i]);
+          for (int i = 0; i < 4; ++i) a[kk][i] = relu_bf16x2(a[kk][i]);
         }
       }
+    };
+    const int row0 = wg * 8 + warp;  // tile row of acc[0]; acc[1]: + 4
+    // Both tiles' fragments for depth step `it` (waits for the chunk's
+    // patch at its first tap).
+    auto load_step = [&](uint32_t (&f)[2][4][4], int it) {
+      const int cc = it / 9;
+      const int tap = it - cc * 9;
+      const int di = tap / 3;
+      const int dj = tap - di * 3;
+      if (tap == 0) mbar_wait(full_p + (cc & 1), (cc >> 1) & 1);
+      const unsigned char* patch = sP + (cc & 1) * PATCH_BYTES;
+      load_a(f[0], patch, row0, di, dj);
+      load_a(f[1], patch, row0 + 4, di, dj);
+    };
+    // Depth step `it`: its eight products from `cur`, and under them the
+    // loads of step it + 1 into `nxt`.  The step ends with every product
+    // done: the assembler serialises wgmma whose input registers are
+    // written while any group of the same stage is still open, so a set is
+    // only refilled after a full wait.
+    auto step = [&](int it, uint32_t (&cur)[2][4][4],
+                    uint32_t (&nxt)[2][4][4]) {
+      const int slot = it % WSLOTS;
+      mbar_wait(full_w + slot, (it / WSLOTS) & 1);
+      const uint64_t w_desc = wgmma_desc_sw128(sW + slot * W_BYTES);
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, pb + np * 16 * PITCH + kk * 16);
-        bq[2 * np][0] = r[0];
-        bq[2 * np][1] = r[1];
-        bq[2 * np + 1][0] = r[2];
-        bq[2 * np + 1][1] = r[3];
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_operands(cur[m][kk]);
+        fence_operands(acc[m]);
       }
+      wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16_16816(acc[mt][nt], af[mt], bq[nt][0], bq[nt][1]);
-    }
-  }
-  cp_async_wait<0>();
+        for (int kk = 0; kk < CK / 16; ++kk)
+          wgmma_m64n128k16_rs(acc[m], cur[m][kk], w_desc + 2 * kk, 1);
+      wgmma_commit();
+      if (it + 1 < niter) load_step(nxt, it + 1);
+      wgmma_wait<0>();
+      fence_operands(acc[0]);
+      fence_operands(acc[1]);
+      if (lane == 0) {
+        mbar_arrive(empty_w + slot);
+        if (it % 9 == 8) mbar_arrive(empty_p + ((it / 9) & 1));
+      }
+    };
 
-  bf16* ob = out + static_cast<int64_t>(b) * H * W * F;
+    load_step(fa, 0);
+    int it = 0;
+    for (; it + 1 < niter; it += 2) {
+      step(it, fa, fb);
+      step(it + 1, fb, fa);
+    }
+    if (it < niter) step(it, fa, fb);
+
+    bf16* ob = out + static_cast<int64_t>(b) * H * W * F;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int f = f0 + wn * 32 + nt * 8 + t * 2;
-    if (f >= F) continue;  // F is even, so f + 1 < F as well
-    const float b0 = bias[f], b1 = bias[f + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int oy = ty0 + wm * 4 + mt;
+    for (int m = 0; m < 2; ++m) {
+      const int oy = ty0 + row0 + 4 * m;
       if (oy >= H) continue;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int ox = tx0 + g + half * 8;
-        if (ox >= W) continue;
-        const __nv_bfloat162 y = __floats2bfloat162_rn(
-            acc[mt][nt][2 * half] + b0, acc[mt][nt][2 * half + 1] + b1);
-        *reinterpret_cast<__nv_bfloat162*>(
-            ob + (static_cast<int64_t>(oy) * W + ox) * F + f) = y;
+      for (int nt = 0; nt < 16; ++nt) {
+        const int f = f0 + nt * 8 + t * 2;
+        if (f >= F) continue;  // F is even, so f + 1 < F as well
+        const float b0 = bias[f], b1 = bias[f + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ox = tx0 + g + half * 8;
+          if (ox >= W) continue;
+          const __nv_bfloat162 y = __floats2bfloat162_rn(
+              acc[m][4 * nt + 2 * half] + b0,
+              acc[m][4 * nt + 2 * half + 1] + b1);
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + (static_cast<int64_t>(oy) * W + ox) * F + f) = y;
+        }
       }
     }
   }
 }
 
 template <bool RELU>
-int launch(const bf16* x, const bf16* wp, const float* bias, bf16* out, int B,
-           int H, int W, int C, int F, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
+int launch(const CUtensorMap& mx, const CUtensorMap& mw, const float* bias,
+           bf16* out, int B, int H, int W, int C, int F, cudaStream_t st) {
+  // per launch: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
       conv3x3_kernel<RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int nfb = (F + BN - 1) / BN;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * nfb);
-  conv3x3_kernel<RELU><<<grid, NTHREADS, SMEM_BYTES, st>>>(x, wp, bias, out, H,
-                                                          W, C, F, nfb);
+  conv3x3_kernel<RELU><<<grid, NTHREADS, SMEM_BYTES, st>>>(mx, mw, bias, out,
+                                                          H, W, C, F, nfb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Geometry of the kernel, for the host side to check against: tile height,
+// tile width, features per block, dynamic shared-memory bytes.
+extern "C" void txr_conv3x3_geometry(int* out4) {
+  out4[0] = TH;
+  out4[1] = TW;
+  out4[2] = BN;
+  out4[3] = SMEM_BYTES;
+}
+
 // x: (B, H, W, C) bf16 NHWC contiguous; wp: (9, F, C) bf16 (tap = 3*di + dj,
 // feature, channel); bias: (F,) f32; out: (B, H, W, F) bf16.  C and F
 // multiples of 8, all pointers 16-byte aligned, B * ceil(F/128) <= 65535,
-// ceil(H/8) <= 65535.  Returns the launch's cudaError_t (0 on success).
+// ceil(H/16) <= 65535.  Returns a cudaError_t (0 on success).
 extern "C" int txr_conv3x3_fwd(const void* x, const void* wp, const void* bias,
                                void* out, int B, int H, int W, int C, int F,
                                int relu_in, void* stream) {
+  CUtensorMap mx, mw;
+  {
+    const uint64_t dims[4] = {static_cast<uint64_t>(C),
+                              static_cast<uint64_t>(W),
+                              static_cast<uint64_t>(H),
+                              static_cast<uint64_t>(B)};
+    const uint64_t strides[3] = {static_cast<uint64_t>(C) * 2,
+                                 static_cast<uint64_t>(W) * C * 2,
+                                 static_cast<uint64_t>(H) * W * C * 2};
+    const uint32_t box[4] = {CK, PW, PH, 1};
+    const int rc = encode_bf16_map(&mx, x, 4, dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  {
+    const uint64_t dims[3] = {static_cast<uint64_t>(C),
+                              static_cast<uint64_t>(F), 9};
+    const uint64_t strides[2] = {static_cast<uint64_t>(C) * 2,
+                                 static_cast<uint64_t>(F) * C * 2};
+    const uint32_t box[3] = {CK, BN, 1};
+    const int rc = encode_bf16_map(&mw, wp, 3, dims, strides, box);
+    if (rc != 0) return rc;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* wpp = static_cast<const bf16*>(wp);
   const float* bp = static_cast<const float*>(bias);
   bf16* op = static_cast<bf16*>(out);
-  return relu_in ? launch<true>(xp, wpp, bp, op, B, H, W, C, F, st)
-                 : launch<false>(xp, wpp, bp, op, B, H, W, C, F, st);
+  return relu_in ? launch<true>(mx, mw, bp, op, B, H, W, C, F, st)
+                 : launch<false>(mx, mw, bp, op, B, H, W, C, F, st);
 }

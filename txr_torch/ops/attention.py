@@ -10,11 +10,14 @@ addresses each operand by base pointer and strides, so ``attention_flash``
 takes the non-contiguous head views a ViT slices from its fused projection
 without copying them. It is bound by operations on this card
 (4*B*H*S^2*D flop against about 12*B*S*H*D bytes), so it runs both products
-on the bf16 tensor cores and streams 64-key tiles through an online softmax,
-masking the ragged last tile against ``kv_len``; see the source for the
-layout. What is TPU-shaped in ``txr`` (two heads per program, whole-K
-residency, zero padding of S with a pad-mass correction) is not carried
-over.
+as ``wgmma`` on the bf16 tensor cores: a block of three consumer warpgroups
+owns 192 query rows, a producer thread streams 128-key tiles by TMA through
+a ring of shared-memory stages, and an online softmax masks the ragged last
+tile against ``kv_len``; see the source for the layout. Each operand reaches
+the kernel as a tensor map, which is why its strides must be multiples of 16
+bytes (:func:`tma_operand_strides`). What is TPU-shaped in ``txr`` (two
+heads per program, whole-K residency, zero padding of S with a pad-mass
+correction) is not carried over.
 
 Contract (identical to ``txr``): qkv is ``(B, S, 3*H*D)`` component-major,
 so head ``h`` has q, k, v at columns ``h*D``, ``H*D + h*D`` and
@@ -39,6 +42,56 @@ import torch
 from txr_torch import _cuda
 
 _NEG_INF = -1.0e30
+
+# The kernel's tiling (csrc/attention.cu; ``chip_smoke.py`` checks that the
+# built library reports the same numbers).
+BLOCK_Q = 192        # query rows per block: three warpgroups of 64
+BLOCK_K = 128        # keys per tile
+STAGES = 3           # K/V tiles in flight
+HEAD_DIM = 64
+MAX_SMEM_BYTES = 232448      # what one block may use on an H100
+
+
+def kernel_geometry(batch: int, heads: int, s: int, kv_len: int) -> dict:
+    """Grid, key tiles and shared-memory bytes of one launch (pure; the
+    kernel's own arithmetic, kept here so that it can be tested without the
+    card)."""
+    tile = BLOCK_K * HEAD_DIM * 2
+    smem = 1024 + BLOCK_Q * HEAD_DIM * 2 + 2 * STAGES * tile + 64 * 8
+    return {"grid": (-(-s // BLOCK_Q), heads, batch),
+            "key_tiles": -(-kv_len // BLOCK_K),
+            "masked_keys_in_last_tile": -(-kv_len // BLOCK_K) * BLOCK_K
+            - kv_len,
+            "smem_bytes": smem, "threads": 512}
+
+
+def tma_operand_strides(name: str, shape, stride, data_ptr: int) -> tuple:
+    """The (batch, head, row) element strides a tensor map can be built
+    from, for a (B, H, S, 64) bf16 operand, or ``ValueError``.
+
+    A tensor map needs a 16-byte aligned base, rows of 64 contiguous values
+    and every other stride a non-zero multiple of 16 bytes below 2^40. The
+    stride of a dimension of size 1 is never used and is replaced by a valid
+    one. Nothing is copied: what a map cannot describe is refused."""
+    if len(shape) != 4 or shape[3] != HEAD_DIM:
+        raise ValueError(
+            f"the attention kernel is built for head_dim {HEAD_DIM}, got "
+            f"{name} of shape {tuple(shape)}")
+    if stride[3] != 1 or data_ptr % 16:
+        raise ValueError(
+            f"the attention kernel needs rows of {name} contiguous and "
+            f"16-byte aligned (last stride 1), got strides {tuple(stride)}")
+    out = []
+    for size, st in zip(shape[:3], stride[:3]):
+        if size == 1:
+            st = HEAD_DIM                  # unused by any address
+        if st <= 0 or st % 8 or st * 2 >= 1 << 40:
+            raise ValueError(
+                f"the attention kernel reads {name} through a tensor map, "
+                f"whose strides must be non-zero multiples of 8 elements "
+                f"(16 bytes) below 2^40 bytes, got strides {tuple(stride)}")
+        out.append(st)
+    return tuple(out)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,22 +213,16 @@ def _launch_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"for {name}")
         if ten.device != q.device:
             raise ValueError("q, k and v must lie on one device")
-        if (ten.stride(3) != 1 or ten.data_ptr() % 16
-                or any(st % 8 for st in ten.stride()[:3])):
-            raise ValueError(
-                f"the attention kernel needs rows of {name} contiguous and "
-                f"16-byte aligned (last stride 1, the others multiples of 8)")
-    if d != 64:
-        raise ValueError(
-            f"the attention kernel is built for head_dim 64, got {d}")
+    in_strides = [st for name, ten in (("q", q), ("k", k), ("v", v))
+                  for st in tma_operand_strides(name, ten.shape, ten.stride(),
+                                                ten.data_ptr())]
     if b > 65535 or h > 65535:
         raise ValueError("batch and head count must each be below 65536")
     # stored as (B, S, H, D) and returned as its (B, H, S, D) view: the
     # caller's transpose back to (B, S, H*D) is then free
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device
                       ).permute(0, 2, 1, 3)
-    strides = (ctypes.c_longlong * 12)(*(
-        st for ten in (q, k, v, out) for st in ten.stride()[:3]))
+    strides = (ctypes.c_longlong * 12)(*in_strides, *out.stride()[:3])
     with torch.cuda.device(q.device):
         err = _cuda.lib().txr_attention_bhsd_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,

@@ -5,13 +5,14 @@ Used for the DPT head's residual conv units on the large maps and for the
 output head's conv1 (``txr_torch/models/dpt.py``) when ``fused_convs`` is
 on. The kernel (``csrc/conv3x3.cu``) replaces the TPU kernel
 ``txr/ops/conv_stripe.py:_conv3_kernel``. It is bound by operations on this
-card, so it is an implicit matrix product on the bf16 tensor cores: an
-8 x 16 pixel tile by 128 features per block, the halo patch and the weights
-chunked through shared memory by 64 channels and by tap, zero padding and
-ragged edges both served by zero-filling copies. ``txr``'s flat stripes, its
-two row-block refs and its (3, C, 3F) packed weight are answers to the TPU's
-memory tiling and are not carried over; the name is kept so that a reader
-finds the counterpart.
+card, so it is an implicit matrix product on the bf16 tensor cores
+(``wgmma``): a 16 x 16 pixel tile by 128 features per block, the halo patch
+and the weights brought in by TMA in chunks of 64 channels and by tap, zero
+padding and ragged edges both served by the zero fill of a box that reaches
+outside its tensor (:func:`kernel_geometry` has the arithmetic). ``txr``'s
+flat stripes, its two row-block refs and its (3, C, 3F) packed weight are
+answers to the TPU's memory tiling and are not carried over; the name is
+kept so that a reader finds the counterpart.
 
 The kernel takes bf16, C and F multiples of 8, and the weight repacked as
 (9, F, C) (tap, feature, channel); ``pack_weight`` makes that from HWIO.
@@ -30,6 +31,34 @@ import torch
 import torch.nn.functional as F
 
 from txr_torch import _cuda
+
+
+# The kernel's tiling (csrc/conv3x3.cu; ``chip_smoke.py`` checks that the
+# built library reports the same numbers).
+TILE_H = 16
+TILE_W = 16
+BLOCK_F = 128        # features per block
+CHUNK_C = 64         # channels per shared-memory chunk (128-byte rows)
+W_SLOTS = 4          # weight slices in flight
+MAX_SMEM_BYTES = 232448      # what one block may use on an H100
+
+
+def kernel_geometry(batch: int, h: int, w: int, c: int, feat: int) -> dict:
+    """Grid, depth steps, TMA boxes and shared-memory bytes of one launch
+    (pure; the kernel's own arithmetic, kept here so that it can be tested
+    without the card)."""
+    patch_rows = (TILE_H + 2) * (TILE_W + 2)
+    patch_bytes = -(-patch_rows * CHUNK_C * 2 // 1024) * 1024
+    nfb = -(-feat // BLOCK_F)
+    grid = (-(-w // TILE_W), -(-h // TILE_H), batch * nfb)
+    return {"grid": grid, "feature_blocks": nfb,
+            "chunks": -(-c // CHUNK_C), "depth_steps": -(-c // CHUNK_C) * 9,
+            # innermost first: x seen as (C, W, H, B), the weight as (C, F, 9)
+            "patch_box": (CHUNK_C, TILE_W + 2, TILE_H + 2, 1),
+            "weight_box": (CHUNK_C, BLOCK_F, 1),
+            "smem_bytes": 1024 + 2 * patch_bytes
+            + W_SLOTS * BLOCK_F * CHUNK_C * 2 + 64 * 8,
+            "stored_share": (h * w) / (grid[0] * TILE_W * grid[1] * TILE_H)}
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -67,8 +96,9 @@ def _launch(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"packed weight must be (9, {feat}, {c}) bfloat16, got "
             f"{tuple(wp.shape)} {wp.dtype}")
-    if bsz * -(-feat // 128) > 65535 or -(-h // 8) > 65535:
-        raise ValueError("batch x feature blocks and H / 8 must each be "
+    grid = kernel_geometry(bsz, h, w_, c, feat)["grid"]
+    if grid[2] > 65535 or grid[1] > 65535:
+        raise ValueError("batch x feature blocks and H / 16 must each be "
                          "below 65536")
     dev = x.device
     bias = b.to(device=dev, dtype=torch.float32).contiguous()
