@@ -15,10 +15,14 @@ paths below give it, and then drives those paths at full width:
 Each kernel is held against its plain version at its path shapes and at
 ragged ones (attention: S = 2432 and 77, ``kv_len`` 1 / 64 / 1984 / 2000,
 three stride patterns of the (B, H, S, D) entry; conv: an image smaller than
-a tile, F = 136); the attention and conv kernels are run twice on one input
-and must repeat bit for bit, are timed against their library calls inside
-one interleaved loop (20 rounds, min / median / max on the ``kernels`` line),
-and the built library must report the tiling the wrappers compute with.
+a tile, F = 136; int8 linear: M = 1 and 129, K = 16 and 4096 + 16, N = 8, an
+all-zero row, values on rounding ties; tail: every head width, every resize
+ratio, an image smaller than a tile); the attention, conv, int8 and tail
+kernels are run twice on one input and must repeat bit for bit, are timed
+against their library calls inside one interleaved loop (min / median / max
+on the ``kernels`` line; the int8 linear's quantise pass and product also
+apart), and the built library must report the tiling the wrappers compute
+with.
 
 ``main_path`` runs it with the default configuration (attention, DPT tail
 and segmented-scan kernels); ``quant_path`` with ``quant="int8p"`` and
@@ -78,10 +82,14 @@ from txr_torch.ops.conv_stripe import (BLOCK_F, TILE_H, TILE_W,
                                        conv3x3_reference, conv3x3_stripe,
                                        pack_weight)
 from txr_torch.ops.conv_stripe import kernel_geometry as conv_geometry
-from txr_torch.ops.dpt_tail import fused_head_tail, head_tail_reference
+from txr_torch.ops.dpt_tail import (fused_head_tail, head_tail_reference,
+                                    pack_params)
+from txr_torch.ops.dpt_tail import kernel_geometry as tail_geometry
 from txr_torch.ops.quant import Int8Linear
-from txr_torch.ops.quant_fused import (Int8LinearFused, int8_linear,
+from txr_torch.ops.quant_fused import (STAGES, TILE_M, TILE_N,
+                                       Int8LinearFused, int8_linear,
                                        int8_linear_reference)
+from txr_torch.ops.quant_fused import kernel_geometry as int8_geometry
 from txr_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                   compute_da_resize, resize_bicubic)
 from txr_torch.ops.scan import segmented_cumsum_cols
@@ -309,68 +317,104 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
             "geometry": {**geo, "grid": list(geo["grid"])}}
 
 
+def require_tail_geometry(shape: tuple, sms: int) -> dict:
+    """The built library must choose the tile, window and shared memory the
+    wrapper computes for ``shape`` = (B, Hin, Win, C, out_h, out_w)."""
+    geo = tail_geometry(*shape, sms)
+    buf = (ctypes.c_int * 8)()
+    rc = kernels.lib().txr_dpt_tail_geometry(*shape, sms, buf)
+    want = (*geo["tile"], *geo["window"], geo["window_buffers"],
+            geo["smem_bytes"], geo["grid"], geo["threads"])
+    if rc != 0 or tuple(buf) != want:
+        raise AssertionError(f"dpt_tail: the library reports geometry "
+                             f"{rc} {tuple(buf)} for {shape}, the wrapper "
+                             f"assumes {want}")
+    return geo
+
+
 def check_tail(batch: int, gen: torch.Generator) -> dict:
     hin, win, c, feat = 296, 528, 128, 32
     out_h, out_w = compute_da_resize(H, W, 518)
+    sms = kernels.sm_count(0)
 
-    def case(b, hi, wi, ho, wo):
-        x = torch.randn((b, hi, wi, c), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        return x, ho, wo
+    def operands(b, hi, wi, ch):
+        x = torch.randn((b, hi, wi, ch), generator=gen, device="cuda")
+        w2 = torch.randn((3, 3, ch, feat), generator=gen, device="cuda")
+        w2 = w2 * 0.05 * (128 / ch) ** 0.5       # conv2's output of rms 4
+        b2 = torch.randn((feat,), generator=gen, device="cuda") * 0.5
+        w3 = torch.randn((feat,), generator=gen, device="cuda")
+        b3 = torch.randn((1,), generator=gen, device="cuda")
+        return [t.to(torch.bfloat16) for t in (x, w2, b2, w3, b3)]
 
-    w2 = (torch.randn((3, 3, c, feat), generator=gen, device="cuda") * 0.05
-          ).to(torch.bfloat16)
-    b2 = (torch.randn((feat,), generator=gen, device="cuda") * 0.5
-          ).to(torch.bfloat16)
-    w3 = torch.randn((feat,), generator=gen, device="cuda").to(torch.bfloat16)
-    b3 = torch.randn((1,), generator=gen, device="cuda").to(torch.bfloat16)
-
-    def exact(xs, hs, ws):
+    def exact(args, hs, ws):
         # the plain version in f32 arithmetic on the same bf16 values (its
         # bf16 run rounds three intermediates and is itself 0.2 off this)
-        return head_tail_reference(xs.float(), w2.float(), b2.float(),
-                                   w3.float(), b3.float(), hs, ws)
+        return head_tail_reference(*(t.float() for t in args), hs, ws)
 
-    x, ho, wo = case(batch, hin, win, out_h, out_w)
-    got = fused_head_tail(x, w2, b2, w3, b3, ho, wo)
-    want = exact(x, ho, wo)
-    err = compare("dpt_tail", f"main B={batch} {hin}x{win}->{ho}x{wo}", got,
-                  want, **TAIL_TOL)
-    del want
-    for label, (hi, wi, ho2, wo2) in {
-            "near-1 ratio 176->180": (176, 40, 180, 45),
-            "downsample 64->40": (64, 48, 40, 30),
-            "out_h == 1": (32, 16, 1, 20)}.items():
-        xs, _, _ = case(1, hi, wi, ho2, wo2)
-        compare("dpt_tail", label,
-                fused_head_tail(xs, w2, b2, w3, b3, ho2, wo2),
-                exact(xs, ho2, wo2), **TAIL_TOL)
+    geo = require_tail_geometry((batch, hin, win, c, out_h, out_w), sms)
+    args = operands(batch, hin, win, c)
+    x, w2, b2, w3, b3 = args
+    got = fused_head_tail(*args, out_h, out_w)
+    want = exact(args, out_h, out_w)
+    err = compare("dpt_tail", f"main B={batch} {hin}x{win}->{out_h}x{out_w}",
+                  got, want, **TAIL_TOL)
+    del want, got
+    require_repeatable("dpt_tail",
+                       lambda: fused_head_tail(*args, out_h, out_w))
+    # every resize ratio, every head width (C = features / 2 of the four
+    # presets), an image smaller than one tile, one column past a tile, and
+    # fewer tiles than multiprocessors
+    for label, (b, hi, wi, ch, ho, wo) in {
+            "near-1 ratio 176->180": (1, 176, 40, 128, 180, 45),
+            "downsample 64->40": (1, 64, 48, 128, 40, 30),
+            "out_h == 1": (1, 32, 16, 128, 1, 20),
+            "C=32 (vits)": (2, 20, 24, 32, 35, 42),
+            "C=64 (vitb)": (2, 20, 24, 64, 35, 42),
+            "C=192 (vitg)": (2, 20, 24, 192, 35, 42),
+            "smaller than a tile 5x7": (1, 4, 4, 128, 5, 7),
+            "out_w = tile width + 1": (1, 12, 20, 128, 21, 33),
+            "10 tiles on all multiprocessors": (1, 24, 36, 128, 40, 60),
+    }.items():
+        g = require_tail_geometry((b, hi, wi, ch, ho, wo), sms)
+        small = operands(b, hi, wi, ch)
+        compare("dpt_tail", f"{label}: {hi}x{wi}x{ch}->{ho}x{wo}, tile "
+                f"{g['tile'][0]}, grid {g['grid']}",
+                fused_head_tail(*small, ho, wo), exact(small, ho, wo),
+                **TAIL_TOL)
 
-    ms = time_ms(lambda: fused_head_tail(x, w2, b2, w3, b3, ho, wo))
-    plain_ms = time_ms(lambda: head_tail_reference(x, w2, b2, w3, b3, ho, wo),
+    plain_ms = time_ms(lambda: head_tail_reference(*args, out_h, out_w),
                        runs=3)
+    packed = pack_params(w2, b2, w3, b3)
     xc = x.permute(0, 3, 1, 2)
     wk = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
     def library():
-        y = F.interpolate(xc, size=(ho, wo), mode="bilinear",
+        y = F.interpolate(xc, size=(out_h, out_w), mode="bilinear",
                           align_corners=True)
         return F.conv2d(y, wk, b2, padding=1)
 
-    library_ms = time_ms(library)
-    flops = 2.0 * 9 * c * feat * ho * wo * batch
-    nbytes = 2.0 * (x.numel() + w2.numel() + batch * ho * wo)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    spread = time_spread({
+        "kernel": lambda: fused_head_tail(*args, out_h, out_w, packed),
+        "kernel_packing_per_call": lambda: fused_head_tail(*args, out_h,
+                                                           out_w),
+        "library": library}, runs=10)
+    ms = spread["kernel"]["median"]
+    flops = 2.0 * 9 * c * feat * out_h * out_w * batch
+    nbytes = 2.0 * (x.numel() + w2.numel() + batch * out_h * out_w)
     return {"name": "dpt_tail", "route": "cuda",
             "source": "txr_torch/csrc/dpt_tail.cu",
             "replaces": "txr/ops/dpt_tail.py:114",
-            "shape": [batch, hin, win, c, ho, wo], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "shape": [batch, hin, win, c, out_h, out_w], "max_abs_err": err,
+            "ms": ms, "ms_spread": spread["kernel"],
+            "ms_packing_per_call": spread["kernel_packing_per_call"],
+            "plain_ms": plain_ms, **bound(flops, PEAK_BF16_FLOPS, nbytes),
+            "library_ms": spread["library"]["median"],
+            "library_ms_spread": spread["library"],
             "library_call": "F.interpolate + F.conv2d (conv2 only, no ReLU "
                             "or conv3)",
-            "tflops": flops / ms / 1e9}
+            "tflops": flops / ms / 1e9,
+            "geometry": {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in geo.items()}}
 
 
 def surface_points(batch: int, shift: float) -> PointSet:
@@ -493,9 +537,41 @@ def compare_bits(name: str, case: str, got: torch.Tensor,
     return {"max_abs_err": max_abs, "bit_equal_share": share}
 
 
+def int8_parts(mod: Int8LinearFused, x: torch.Tensor) -> tuple:
+    """The two kernels behind ``mod(x)`` as separate calls, for timing them
+    apart: ``quantise()`` (rows of x -> int8 and scales) and ``gemm()`` (the
+    product and its epilogue on that result). x: (M, K) bf16 on the card."""
+    m, k = x.shape
+    n = mod.out_features
+    _, wq_nk, sw = mod._wq.get(mod.weight)
+    bias = mod._b32.get(mod.bias)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    sms = kernels.sm_count(x.device)
+    lib = kernels.lib()
+
+    def quantise():
+        kernels.check(lib.txr_int8_quantize_rows(
+            x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+            torch.cuda.current_stream().cuda_stream), "int8_quantize_rows")
+        return xq
+
+    def gemm():
+        kernels.check(lib.txr_int8_gemm(
+            xq.data_ptr(), wq_nk.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), m, k, n, sms,
+            torch.cuda.current_stream().cuda_stream), "int8_gemm")
+        return out
+
+    quantise()
+    return quantise, gemm
+
+
 def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
     in_h, in_w = compute_da_resize(H, W, 518)
     m = batch * ((in_h // 14) * (in_w // 14) + 1)
+    sms = kernels.sm_count(0)
 
     def operands(rows, k, n):
         x = torch.randn((rows, k), generator=gen, device="cuda")
@@ -508,12 +584,37 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
         b = torch.randn((n,), generator=gen, device="cuda")
         return x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
 
-    x, w, b = operands(300, 96, 136)
-    got = int8_linear(x, w, b)
-    compare_bits("int8_linear", "ragged M=300 K=96 N=136", got,
-                 int8_linear_reference(x, w, b))
-    if not torch.equal(got[150].float(), b.float()):
-        raise AssertionError("int8_linear: an all-zero row must give the bias")
+    geo = int8_geometry(m, 4096, 1024, sms)
+    require_geometry("int8_linear", kernels.lib().txr_int8_linear_geometry,
+                     (TILE_M, TILE_N, STAGES, geo["smem_bytes"]))
+    # ragged in every way; one row; one row past a tile; K shorter than one
+    # swizzled row; K one 16-byte piece past a whole number of stages; the
+    # narrowest N
+    for label, (rows, k, n) in {"ragged": (300, 96, 136),
+                                "one row": (1, 1024, 264),
+                                "one row past a tile": (129, 256, 512),
+                                "K = 16": (200, 16, 72),
+                                "K = 4096 + 16": (77, 4096 + 16, 264),
+                                "N = 8": (300, 128, 8)}.items():
+        x, w, b = operands(rows, k, n)
+        got = int8_linear(x, w, b)
+        compare_bits("int8_linear", f"{label} M={rows} K={k} N={n}", got,
+                     int8_linear_reference(x, w, b))
+        if not torch.equal(got[rows // 2].float(), b.float()):
+            raise AssertionError(
+                f"int8_linear {label}: an all-zero row must give the bias")
+    # rounding ties: the row maximum 127 makes the scale 1, and every other
+    # value k + 0.5 (exact in bf16 up to 64) sits between two integers
+    x, w, b = operands(64, 256, 64)
+    ties = (torch.arange(256, device="cuda")[None, :] * 7
+            + torch.arange(64, device="cuda")[:, None]) % 128 - 64
+    x = (ties.float() + 0.5).to(torch.bfloat16)
+    x[:, 0] = 127.0
+    if not torch.equal(x.float()[:, 1:] % 1.0, torch.full_like(
+            x.float()[:, 1:], 0.5)):
+        raise AssertionError("the tie inputs are not exact in bf16")
+    compare_bits("int8_linear", "rounding ties x / sx = k + 0.5, M=64 K=256 "
+                 "N=64", int8_linear(x, w, b), int8_linear_reference(x, w, b))
 
     by_shape = []
     for role, k, n in (("qkv", 1024, 3072), ("proj", 1024, 1024),
@@ -528,18 +629,38 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
                 mod.bias.copy_(b)
             res = compare_bits("int8_linear", f"{role} M={m} K={k} N={n}",
                                fused(x), int8_linear_reference(x, w, b))
-            ms = time_ms(lambda: fused(x))
+            if role == "fc2":
+                require_repeatable("int8_linear", lambda: fused(x))
             plain_ms = time_ms(lambda: int8_linear_reference(x, w, b), runs=3)
-            bf16_ms = time_ms(lambda: plain(x))
-            int8_ms = time_ms(lambda: lib8(x))
+            quantise, gemm = int8_parts(fused, x)
+            spread = time_spread({
+                "kernel": lambda: fused(x), "quantise": quantise,
+                "gemm": gemm, "bf16": lambda: plain(x),
+                "int_mm": lambda: lib8(x)}, runs=10)
+        ms = spread["kernel"]["median"]
         ops = 2.0 * m * k * n
         nbytes = 2.0 * m * k + k * n + 8.0 * n + 2.0 * m * n
+        site = int8_geometry(m, k, n, sms)
         by_shape.append({"role": role, "shape": [m, k, n], **res, "ms": ms,
+                         "ms_spread": spread["kernel"],
+                         "quantise_ms": spread["quantise"]["median"],
+                         "quantise_ms_spread": spread["quantise"],
+                         "quantise_bound_ms": 3.0 * m * k / PEAK_BYTES * 1e3,
+                         "gemm_ms": spread["gemm"]["median"],
+                         "gemm_ms_spread": spread["gemm"],
+                         "gemm_tops": ops / spread["gemm"]["median"] / 1e9,
+                         # the two kernels' own time, without the wrapper's
+                         # host work that "ms" may be waiting for
+                         "device_ms": spread["quantise"]["median"]
+                         + spread["gemm"]["median"],
                          "plain_ms": plain_ms,
                          **bound(ops, PEAK_INT8_OPS, nbytes),
-                         "library_ms": bf16_ms, "library_int8_ms": int8_ms,
-                         "tops": ops / ms / 1e9})
-        del x, w, b, fused, lib8, plain
+                         "library_ms": spread["bf16"]["median"],
+                         "library_ms_spread": spread["bf16"],
+                         "library_int8_ms": spread["int_mm"]["median"],
+                         "tops": ops / ms / 1e9, "tiles": site["tiles"],
+                         "waves": site["waves"], "grid": site["grid"]})
+        del x, w, b, fused, lib8, plain, quantise, gemm
     fc2 = by_shape[-1]
     return {"name": "int8_linear", "route": "cuda",
             "source": "txr_torch/csrc/int8_linear.cu",
@@ -548,7 +669,8 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
             "shapes of an encoder block are under by_shape)",
             "max_abs_err": max(r["max_abs_err"] for r in by_shape),
             "bit_equal_share": min(r["bit_equal_share"] for r in by_shape),
-            "ms": fc2["ms"], "plain_ms": fc2["plain_ms"],
+            "ms": fc2["ms"], "ms_spread": fc2["ms_spread"],
+            "plain_ms": fc2["plain_ms"],
             "bound_ms": fc2["bound_ms"], "bound_by": fc2["bound_by"],
             "library_ms": fc2["library_ms"],
             "library_call": "F.linear in bf16 (nn.Linear); library_int8_ms "
@@ -556,10 +678,15 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
                             "quantise and rescale passes",
             "library_int8_ms": fc2["library_int8_ms"],
             "block_ms": sum(r["ms"] for r in by_shape),
+            "block_device_ms": sum(r["device_ms"] for r in by_shape),
+            "block_quantise_ms": sum(r["quantise_ms"] for r in by_shape),
+            "block_gemm_ms": sum(r["gemm_ms"] for r in by_shape),
+            "block_bound_ms": sum(r["bound_ms"] for r in by_shape),
             "block_library_ms": sum(r["library_ms"] for r in by_shape),
             "block_library_int8_ms": sum(r["library_int8_ms"]
                                          for r in by_shape),
-            "tops": fc2["tops"], "by_shape": by_shape}
+            "tops": fc2["tops"], "by_shape": by_shape,
+            "smem_bytes": geo["smem_bytes"]}
 
 
 CONV_TOL = dict(atol=2e-3, rtol=2.0 ** -7, rms_rtol=2.0 ** -7,

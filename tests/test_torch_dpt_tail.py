@@ -112,3 +112,171 @@ class TestTailParity:
         with pytest.raises(ValueError):
             pt.fused_head_tail(x, torch.zeros((3, 3, 8, 8)), z, z, z[:1],
                                0, 8)
+
+
+# ------------------------------------------------- the kernel's host side
+
+def _head_widths():
+    from txr_torch.models.depth_anything import MODEL_CONFIGS
+
+    return sorted({c["features"] // 2 for entries in MODEL_CONFIGS.values()
+                   for c in entries.values()})
+
+
+GEOMETRY_SHAPES = [
+    # b, hin, win, c, hout, wout
+    (8, 296, 528, 128, 518, 924),   # the head at 1080p
+    (1, 176, 40, 128, 180, 45),     # near-1 ratio
+    (1, 64, 48, 128, 40, 30),       # downsample
+    (1, 32, 16, 128, 1, 20),        # out_h == 1
+    (1, 4, 4, 32, 5, 7),            # smaller than one tile
+    (2, 12, 20, 192, 21, 33),       # one column past a tile
+]
+
+
+class TestKernelGeometry:
+    """``dpt_tail.kernel_geometry``: tile, input window, shared memory and
+    persistent grid of the kernel, as pure arithmetic."""
+
+    @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+    @pytest.mark.parametrize("sms", [1, 132])
+    def test_tiles_cover_the_image_exactly_once(self, shape, sms):
+        b, hin, win, c, hout, wout = shape
+        geo = pt.kernel_geometry(*shape, sms)
+        assert 1 <= geo["grid"] <= sms
+        assert geo["smem_bytes"] <= pt.MAX_SMEM_BYTES == 232448
+        th, tw = geo["tile"]
+        seen = np.zeros((b, hout, wout), np.int32)
+        walked = 0
+        for block in range(geo["grid"]):        # the kernel's own walk
+            for i in range(block, geo["tiles"], geo["grid"]):
+                bi, y0, x0 = pt.tile_origin(i, geo)
+                assert bi < b and y0 < hout and x0 < wout
+                seen[bi, y0:y0 + th, x0:x0 + tw] += 1
+                walked += 1
+        assert walked == geo["tiles"] and (seen == 1).all()
+
+    @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+    def test_window_holds_every_tap(self, shape):
+        """Each in-range position of a tile-plus-halo reads four taps whose
+        clamped indices lie inside the tile's window box (f32 coordinates,
+        as in the kernel)."""
+        b, hin, win, c, hout, wout = shape
+        geo = pt.kernel_geometry(*shape, 132)
+        (th, tw), (wh, ww) = geo["tile"], geo["window"]
+        assert wh <= pt.MAX_BOX and ww <= pt.MAX_BOX
+        for n_out, n_in, tile, ext in ((hout, hin, th, wh),
+                                       (wout, win, tw, ww)):
+            scale = pt._scale(n_in, n_out)
+            widest = 0
+            for t0 in range(0, n_out, tile):
+                org = pt._origin(t0, scale, n_in)
+                for o in range(max(t0 - 1, 0), min(t0 + tile, n_out - 1) + 1):
+                    i0 = int(np.floor(np.float32(o) * scale))
+                    i0 = min(max(i0, 0), n_in - 1)
+                    i1 = min(i0 + 1, n_in - 1)
+                    assert org <= i0 and i1 - org < ext
+                    widest = max(widest, i1 - org + 1)
+            assert widest == ext == pt.window_extent(n_out, n_in, tile)
+
+    @pytest.mark.parametrize("c", _head_widths())
+    def test_every_head_width_fits(self, c):
+        assert c in (32, 64, 128, 192)
+        geo = pt.kernel_geometry(8, 296, 528, c, 518, 924, 132)
+        assert geo["smem_bytes"] <= 232448 and geo["grid"] == 132
+        assert geo["chunks"] == -(-c // 64)
+        assert geo["weight_bytes"] == 9 * geo["chunks"] * 32 * 128
+        assert geo["window_box"] == (64, *geo["window"][::-1], 1)
+        parts = (1024 + geo["weight_bytes"] + 2 * geo["patch_bytes"]
+                 + geo["window_buffers"] * geo["window_bytes"] + 2 * 43 * 16
+                 + 72)
+        assert parts == geo["smem_bytes"]
+        assert geo["patch_bytes"] % 1024 == geo["window_bytes"] % 1024 == 0
+
+    def test_launch_limits_raise(self):
+        with pytest.raises(ValueError, match="positive"):
+            pt.kernel_geometry(1, 8, 8, 128, 0, 8, 132)
+        with pytest.raises(ValueError, match="positive"):
+            pt.kernel_geometry(1, 8, 8, 128, 8, 8, 0)
+        with pytest.raises(ValueError, match="downsample"):
+            pt.kernel_geometry(1, 2000, 2000, 128, 40, 40, 132)
+        with pytest.raises(ValueError, match="32 bits"):
+            pt.kernel_geometry(2 ** 22, 8, 8, 128, 518, 924, 132)
+
+    def test_what_the_kernel_refuses_raises_by_name(self):
+        """The checks in front of the launch need no card."""
+        def packed(c, feat, dtype=torch.bfloat16):
+            return pt.pack_params(torch.zeros((3, 3, c, feat), dtype=dtype),
+                                  torch.zeros((feat,)), torch.zeros((feat,)),
+                                  torch.zeros((1,)))
+
+        x = torch.zeros((1, 4, 4, 32), dtype=torch.bfloat16)
+        with pytest.raises(TypeError, match="bfloat16"):
+            pt._launch(x.float(), packed(32, 32), 8, 8)
+        with pytest.raises(ValueError, match="32 conv2 features"):
+            pt._launch(x, packed(32, 16), 8, 8)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            pt._launch(torch.zeros((1, 4, 4, 24), dtype=torch.bfloat16),
+                       packed(24, 32), 8, 8)
+        with pytest.raises(ValueError, match=r"\(9, 32, 32\)"):
+            pt._launch(x, packed(48, 32), 8, 8)
+        with pytest.raises(ValueError, match="b2 and w3"):
+            w2p, b2, w3, b3 = packed(32, 32)
+            pt._launch(x, (w2p, b2[:8], w3, b3), 8, 8)
+
+
+class TestPackedOperands:
+    def test_pack_params_layout(self):
+        """(3, 3, C, F) -> (tap, feature, channel), f32 vectors."""
+        x, w2, b2, w3, b3 = (torch.from_numpy(a) for a in
+                             make_case(1, 4, 4, 16, 32, seed=3))
+        w2p, b2f, w3f, b3f = pt.pack_params(w2, b2, w3.reshape(1, 1, 32, 1),
+                                            b3)
+        assert w2p.shape == (9, 32, 16) and w2p.dtype == torch.bfloat16
+        assert w2p.is_contiguous()
+        for tap in range(9):
+            want = w2[tap // 3, tap % 3].t().to(torch.bfloat16)
+            assert torch.equal(w2p[tap], want)
+        assert all(t.dtype == torch.float32 for t in (b2f, w3f, b3f))
+        assert torch.equal(b2f, b2) and torch.equal(w3f, w3)
+        assert b3f.shape == (1,) and torch.equal(b3f, b3)
+
+    def test_head_derives_them_once_and_follows_the_parameters(self):
+        from txr_torch.models.dpt import DPTConfig, DPTHead
+
+        cfg = DPTConfig(features=32, out_channels=(8, 8, 8, 8))
+        head = DPTHead(cfg, hidden_size=16)
+        keys = set(head.state_dict())
+        ops = head.tail_operands()
+        assert set(head.state_dict()) == keys
+        assert not any("tail" in k for k in keys)
+
+        def per_call():
+            return pt.pack_params(
+                head.head_conv2.weight.detach().permute(2, 3, 1, 0),
+                head.head_conv2.bias.detach(),
+                head.head_conv3.weight.detach().reshape(-1),
+                head.head_conv3.bias.detach())
+
+        for got, want in zip(ops, per_call()):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        again = head.tail_operands()
+        assert all(a is b for a, b in zip(ops, again))    # reused
+        with torch.no_grad():
+            head.head_conv2.weight.mul_(2.0)
+            head.head_conv3.bias.add_(1.0)
+        changed = head.tail_operands()
+        assert changed[0] is not ops[0] and changed[3] is not ops[3]
+        assert changed[1] is ops[1] and changed[2] is ops[2]
+        for got, want in zip(changed, per_call()):
+            assert torch.equal(got, want)
+        head.load_state_dict({k: torch.zeros_like(v)
+                              for k, v in head.state_dict().items()})
+        assert not head.tail_operands()[0].any()
+
+    def test_packed_argument_changes_nothing_on_the_cpu(self):
+        args = [torch.from_numpy(a) for a in make_case(1, 6, 7, 16, 32,
+                                                       seed=9)]
+        want = pt.fused_head_tail(*args, 9, 11)
+        got = pt.fused_head_tail(*args, 9, 11, pt.pack_params(*args[1:]))
+        assert torch.equal(got, want)

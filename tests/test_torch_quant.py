@@ -284,3 +284,71 @@ def test_policy_changes_the_answer_but_not_by_much():
     span = float(df.max() - df.min())
     rel = np.abs(dq - df) / span
     assert rel.max() > 0 and np.median(rel) < 0.02 and rel.max() < 0.15
+
+
+# ------------------------------------------------- the kernel's host side
+
+def _widths():
+    from txr_torch.models.depth_anything import MODEL_CONFIGS
+    from txr_torch.models.vit import VIT_PRESETS
+
+    return sorted({VIT_PRESETS[c["encoder"]].hidden_size
+                   for entries in MODEL_CONFIGS.values()
+                   for c in entries.values()})
+
+
+class TestKernelGeometry:
+    """``quant_fused.kernel_geometry``: the product kernel's persistent
+    grid, tiles and shared memory, as pure arithmetic."""
+
+    @pytest.mark.parametrize("m,k,n,sms", [
+        (300, 96, 136, 132), (1, 16, 8, 132), (129, 1024, 1024, 132),
+        (2443, 1024, 3072, 7), (19544, 4096, 1024, 132), (513, 64, 520, 1)])
+    def test_tiles_cover_the_output_exactly_once(self, m, k, n, sms):
+        geo = pqf.kernel_geometry(m, k, n, sms)
+        assert 1 <= geo["grid"] <= sms
+        assert geo["tiles"] == geo["m_tiles"] * geo["n_tiles"]
+        assert geo["waves"] * geo["grid"] >= geo["tiles"]
+        assert geo["k_slices"] * pqf.STAGE_K >= k > (geo["k_slices"] - 1
+                                                     ) * pqf.STAGE_K
+        seen = np.zeros((m, n), np.int32)
+        walked = 0
+        for block in range(geo["grid"]):        # the kernel's own walk
+            for i in range(block, geo["tiles"], geo["grid"]):
+                r0, c0 = pqf.tile_origin(i, geo["n_tiles"])
+                assert r0 < m and c0 < n
+                seen[r0:r0 + pqf.TILE_M, c0:c0 + pqf.TILE_N] += 1
+                walked += 1
+        assert walked == geo["tiles"] and (seen == 1).all()
+
+    @pytest.mark.parametrize("hidden", _widths())
+    def test_shared_memory_fits_every_model_width(self, hidden):
+        for k, n in ((hidden, 3 * hidden), (hidden, hidden),
+                     (hidden, 4 * hidden), (4 * hidden, hidden)):
+            geo = pqf.kernel_geometry(8 * 2443, k, n, 132)
+            assert geo["smem_bytes"] <= pqf.MAX_SMEM_BYTES == 232448
+            assert geo["stage_bytes"] % 1024 == 0   # swizzled tiles stay aligned
+            assert geo["x_box"] == (128, 128) and geo["w_box"] == (128, 256)
+            assert geo["grid"] == 132
+
+    def test_launch_limits_raise(self):
+        with pytest.raises(ValueError, match="positive"):
+            pqf.kernel_geometry(0, 16, 8, 132)
+        with pytest.raises(ValueError, match="positive"):
+            pqf.kernel_geometry(16, 16, 8, 0)
+        with pytest.raises(ValueError, match="32 bits"):
+            pqf.kernel_geometry(2 ** 31, 16, 2 ** 20, 132)
+
+    def test_what_the_kernel_refuses_raises_by_name(self):
+        """The checks in front of the launch need no card."""
+        wq = torch.zeros((8, 32), dtype=torch.int8)
+        vec = torch.zeros((8,))
+        with pytest.raises(TypeError, match="bfloat16"):
+            pqf._launch(torch.zeros((4, 32)), wq, vec, vec)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            pqf._launch(torch.zeros((4, 24), dtype=torch.bfloat16),
+                        torch.zeros((8, 24), dtype=torch.int8), vec, vec)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pqf._launch(torch.zeros((4, 32), dtype=torch.bfloat16),
+                        torch.zeros((12, 32), dtype=torch.int8),
+                        torch.zeros((12,)), torch.zeros((12,)))

@@ -3,6 +3,8 @@
 
     timeout 240 python3 tools/kernel_dev.py attention
     timeout 240 python3 tools/kernel_dev.py conv
+    timeout 240 python3 tools/kernel_dev.py int8
+    timeout 240 python3 tools/kernel_dev.py tail
 
 builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
 the chosen source (registers, spills, and the "wgmma ... serialized"
@@ -25,12 +27,18 @@ import torch
 import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
-from chip_smoke import ATTN_TOL, CONV_TOL, compare, time_spread
+from chip_smoke import (ATTN_TOL, CONV_TOL, TAIL_TOL, compare, compare_bits,
+                        int8_parts, time_spread)
 from txr_torch.ops.attention import (attention_flash, attention_plain,
                                      attention_reference, fused_attention,
                                      split_heads)
 from txr_torch.ops.conv_stripe import (conv3x3_reference, conv3x3_stripe,
                                        pack_weight)
+from txr_torch.ops.dpt_tail import (fused_head_tail, head_tail_reference,
+                                    pack_params)
+from txr_torch.ops.quant import Int8Linear
+from txr_torch.ops.quant_fused import (Int8LinearFused, int8_linear,
+                                       int8_linear_reference)
 
 HEADS, HEAD_DIM = 16, 64
 
@@ -131,9 +139,89 @@ def conv(gen) -> bool:
     return ok
 
 
+def int8(gen) -> bool:
+    def operands(m, k, n):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        x[m // 2] = 0.0                     # an all-zero row: bias only
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        b = torch.randn((n,), generator=gen, device="cuda")
+        return x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+    ok = True
+    for m, k, n in ((128, 128, 256), (300, 96, 136), (1, 16, 8),
+                    (129, 1024, 1024), (77, 4096 + 16, 264),
+                    (2443, 1024, 3072)):
+        x, w, b = operands(m, k, n)
+        got = int8_linear(x, w, b)
+        try:
+            compare_bits("int8_linear", f"M={m} K={k} N={n}", got,
+                         int8_linear_reference(x, w, b))
+        except AssertionError as exc:
+            print(f"FAIL {exc}", flush=True)
+            ok = False
+        ok &= torch.equal(got, int8_linear(x, w, b))
+    if ok:
+        m = 8 * 2443
+        for role, k, n in (("qkv", 1024, 3072), ("proj", 1024, 1024),
+                           ("fc1", 1024, 4096), ("fc2", 4096, 1024)):
+            x, w, b = operands(m, k, n)
+            mods = [cls(k, n).to("cuda", torch.bfloat16)
+                    for cls in (Int8LinearFused, torch.nn.Linear, Int8Linear)]
+            with torch.no_grad():
+                for mod in mods:
+                    mod.weight.copy_(w.t())
+                    mod.bias.copy_(b)
+                quantise, gemm = int8_parts(mods[0], x)
+                print(f"{role} M={m} K={k} N={n}")
+                spread({"kernel": lambda: mods[0](x), "quantise": quantise,
+                        "gemm": gemm, "bf16": lambda: mods[1](x),
+                        "_int_mm": lambda: mods[2](x)})
+    return ok
+
+
+def tail(gen) -> bool:
+    def operands(b, hi, wi, c):
+        x = torch.randn((b, hi, wi, c), generator=gen, device="cuda")
+        w2 = torch.randn((3, 3, c, 32), generator=gen, device="cuda") * 0.05
+        b2 = torch.randn((32,), generator=gen, device="cuda") * 0.5
+        w3 = torch.randn((32,), generator=gen, device="cuda")
+        b3 = torch.randn((1,), generator=gen, device="cuda")
+        return [t.to(torch.bfloat16) for t in (x, w2, b2, w3, b3)]
+
+    ok = True
+    for b, hi, wi, c, ho, wo in ((1, 8, 8, 64, 8, 32), (1, 20, 24, 128, 35, 42),
+                                 (1, 4, 4, 32, 5, 7), (2, 12, 20, 192, 21, 33),
+                                 (1, 176, 40, 128, 180, 45),
+                                 (1, 64, 48, 128, 40, 30),
+                                 (1, 32, 16, 128, 1, 20),
+                                 (2, 74, 132, 128, 130, 231)):
+        args = operands(b, hi, wi, c)
+        got = fused_head_tail(*args, ho, wo)
+        ok &= check(f"dpt_tail {(b, hi, wi, c)} -> {(ho, wo)}", got,
+                    head_tail_reference(*(t.float() for t in args), ho, wo),
+                    TAIL_TOL)
+        ok &= torch.equal(got, fused_head_tail(*args, ho, wo))
+    if ok:
+        x, w2, b2, w3, b3 = operands(8, 296, 528, 128)
+        packed = pack_params(w2, b2, w3, b3)
+        xc = x.permute(0, 3, 1, 2)
+        wk = w2.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        spread({"kernel": lambda: fused_head_tail(x, w2, b2, w3, b3, 518, 924,
+                                                  packed),
+                "library": lambda: F.conv2d(F.interpolate(
+                    xc, size=(518, 924), mode="bilinear", align_corners=True),
+                    wk, b2, padding=1)})
+    return ok
+
+
+MODES = {"attention": ("attention.cu", attention), "conv": ("conv3x3.cu", conv),
+         "int8": ("int8_linear.cu", int8), "tail": ("dpt_tail.cu", tail)}
+
+
 def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else ""
-    if which not in ("attention", "conv"):
+    if which not in MODES:
         print(__doc__)
         return 2
     if not torch.cuda.is_available():
@@ -142,10 +230,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels.build(verbose=True)
-    ptxas_lines("attention.cu" if which == "attention" else "conv3x3.cu")
+    source, run = MODES[which]
+    ptxas_lines(source)
     kernels.lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ok = attention(gen) if which == "attention" else conv(gen)
+    ok = run(gen)
     print("ok" if ok else "FAILED")
     return 0 if ok else 1
 

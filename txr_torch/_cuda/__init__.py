@@ -17,6 +17,7 @@ launched it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,6 +48,15 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Multiprocessors of a CUDA device: the most blocks a persistent grid
+    is given."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sources() -> List[Path]:
@@ -161,18 +171,32 @@ def _declare(h: ctypes.CDLL) -> None:
     h.txr_attention_bhsd_fwd.argtypes = [p, p, p, p, i, i, i, i, f,
                                          ctypes.POINTER(ll), p]
     h.txr_attention_bhsd_fwd.restype = i
-    # (x, wq, sw, bias, xq, sx, out, M, K, N, stream)
-    h.txr_int8_linear_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    # (x, wq, sw, bias, xq, sx, out, M, K, N, sms, stream)
+    h.txr_int8_linear_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     h.txr_int8_linear_fwd.restype = i
+    # its two halves on their own: (x, xq, sx, M, K, stream) and
+    # (xq, wq, sx, sw, bias, out, M, K, N, sms, stream)
+    h.txr_int8_quantize_rows.argtypes = [p, p, p, i, i, p]
+    h.txr_int8_quantize_rows.restype = i
+    h.txr_int8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    h.txr_int8_gemm.restype = i
+    # (out[4]: tile rows, tile columns, stages, smem bytes)
+    h.txr_int8_linear_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_int8_linear_geometry.restype = None
     # (out[4]: tile height, tile width, features per block, smem bytes)
     h.txr_conv3x3_geometry.argtypes = [ctypes.POINTER(i)]
     h.txr_conv3x3_geometry.restype = None
     # (x, wp, bias, out, B, H, W, C, F, relu_in, stream)
     h.txr_conv3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     h.txr_conv3x3_fwd.restype = i
-    # (x, w2t, b2, w3, b3, out, B, Hin, Win, C, out_h, out_w, stream)
-    h.txr_dpt_tail_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    # (x, w2p, b2, w3, b3, out, B, Hin, Win, C, out_h, out_w, sms, stream)
+    h.txr_dpt_tail_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     h.txr_dpt_tail_fwd.restype = i
+    # (B, Hin, Win, C, out_h, out_w, sms, out[8]: tile height, tile width,
+    # window rows, window columns, window buffers, smem bytes, grid, threads)
+    h.txr_dpt_tail_geometry.argtypes = [i, i, i, i, i, i, i,
+                                        ctypes.POINTER(i)]
+    h.txr_dpt_tail_geometry.restype = i
     h.txr_segscan_tile.argtypes = []
     h.txr_segscan_tile.restype = i
     # (cols[], starts, out, n, ncols, fscratch, iscratch, stream)

@@ -12,8 +12,10 @@
 // wgmma register fragments (lane = 4*g + t of warp w of the warpgroup):
 //   A (64 x 16 bf16): warp w holds rows 16w..16w+15 exactly as the
 //     mma.sync.m16n8k16 A fragment (see mma_utils.cuh).
-//   D (64 x N f32): d[4j+0], d[4j+1] = row 16w+g, columns 8j+2t, 8j+2t+1;
-//     d[4j+2], d[4j+3] = row 16w+g+8, same columns.
+//   D (64 x N f32 or s32): d[4j+0], d[4j+1] = row 16w+g, columns 8j+2t,
+//     8j+2t+1; d[4j+2], d[4j+3] = row 16w+g+8, same columns.
+// For 8-bit operands a 128-byte row holds 128 values of depth and one wgmma
+// takes 32 of them (still 32 bytes: the descriptor steps are the same).
 
 #pragma once
 
@@ -81,6 +83,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ------------------------------------------------------------------ TMA
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -103,15 +115,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Encodes a tiled bf16 tensor map with the 128-byte swizzle and zero fill
-// outside the tensor.  dims and box are innermost first; strides_bytes has
-// rank - 1 entries (dimension 0 is contiguous).  cuTensorMapEncodeTiled
-// lives in libcuda, which every CUDA process has loaded already: the symbol
-// is looked up there at first use, so that the kernel library links against
-// the runtime alone.  Returns 0 or a cudaError_t value.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const uint64_t* dims, const uint64_t* strides_bytes,
-                           const uint32_t* box) {
+// Encodes a tiled tensor map of the given element type with the 128-byte
+// swizzle and zero fill outside the tensor.  dims and box are innermost
+// first; strides_bytes has rank - 1 entries (dimension 0 is contiguous).
+// cuTensorMapEncodeTiled lives in libcuda, which every CUDA process has
+// loaded already: the symbol is looked up there at first use, so that the
+// kernel library links against the runtime alone.  Returns 0 or a
+// cudaError_t value.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides_bytes, const uint32_t* box) {
   typedef CUresult (*EncodeFn)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -132,11 +145,26 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) gstr[i] = strides_bytes[i];
   }
   const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-         const_cast<void*>(base), gdim, gstr, gbox, estr,
+      fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+         gdim, gstr, gbox, estr,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                           const uint64_t* dims, const uint64_t* strides_bytes,
+                           const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides_bytes, box);
+}
+
+// The same for 8-bit elements (int8 operands travel as bytes).
+inline int encode_u8_map(CUtensorMap* map, const void* base, int rank,
+                         const uint64_t* dims, const uint64_t* strides_bytes,
+                         const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims,
+                    strides_bytes, box);
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -174,6 +202,9 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 __device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(int& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 template <typename T, int N>
@@ -287,6 +318,94 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d));
+}
+
+// D (64 x 256, s32) (+)= A (64 x 32 int8, shared, K-major) * B (256 x 32
+// int8, shared, K-major).  8-bit operands have no transpose flag: both are
+// K-major.  scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t a_desc,
+                                                       uint64_t b_desc,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D (64 x 32) (+)= A (64 x 16, shared, K-major) * B (32 x 16, shared,
+// K-major).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t a_desc,
+                                                   uint64_t b_desc,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 
 // ------------------------------------------------------------ registers

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from txr_torch.core.derived import Derived
 from txr_torch.ops.conv_stripe import conv3x3_stripe, pack_weight
-from txr_torch.ops.dpt_tail import fused_head_tail
+from txr_torch.ops.dpt_tail import fused_head_tail, pack_conv2
 
 # FeatureFusionBlock sends its residual units through the 3x3 conv kernel
 # only on maps of at least this many pixels (txr's gate)
@@ -63,6 +63,15 @@ def _hwio(weight: torch.Tensor) -> torch.Tensor:
 
 def _packed(weight: torch.Tensor) -> torch.Tensor:
     return pack_weight(_hwio(weight))
+
+
+def _f32(param: torch.Tensor) -> torch.Tensor:
+    return param.to(torch.float32).reshape(-1).contiguous()
+
+
+def _tail_w2(weight: torch.Tensor) -> torch.Tensor:
+    """conv2's OIHW weight -> the tail kernel's (9, F, C) bf16."""
+    return pack_conv2(_hwio(weight))
 
 
 class Conv3x3(nn.Conv2d):
@@ -152,6 +161,19 @@ class DPTHead(nn.Module):
         self.head_conv2 = nn.Conv2d(c.features // 2, c.head_hidden, 3,
                                     padding=1)
         self.head_conv3 = nn.Conv2d(c.head_hidden, 1, 1)
+        # the tail kernel's operands, derived once per parameter version
+        self._tail_w2 = Derived(_tail_w2)
+        self._tail_b2 = Derived(_f32)
+        self._tail_w3 = Derived(_f32)
+        self._tail_b3 = Derived(_f32)
+
+    def tail_operands(self) -> Tuple[torch.Tensor, ...]:
+        """``ops.dpt_tail.pack_params`` of the head's conv2 / conv3, kept
+        until a parameter changes."""
+        return (self._tail_w2.get(self.head_conv2.weight),
+                self._tail_b2.get(self.head_conv2.bias),
+                self._tail_w3.get(self.head_conv3.weight),
+                self._tail_b3.get(self.head_conv3.bias))
 
     def forward(self, hidden_states: List[torch.Tensor], ph: int, pw: int,
                 patch_size: int = 14) -> torch.Tensor:
@@ -199,7 +221,8 @@ class DPTHead(nn.Module):
             w2 = self.head_conv2.weight.permute(2, 3, 1, 0)   # (3, 3, C, F)
             y = fused_head_tail(x, w2, self.head_conv2.bias,
                                 self.head_conv3.weight.reshape(-1),
-                                self.head_conv3.bias, out_h, out_w)
+                                self.head_conv3.bias, out_h, out_w,
+                                self.tail_operands() if x.is_cuda else None)
         if c.metric:
             return torch.sigmoid(y) * c.max_depth
         return F.relu(y)
