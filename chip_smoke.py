@@ -14,35 +14,46 @@ paths below give it, and then drives those paths at full width:
 
 Each kernel is held against its plain version at its path shapes and at
 ragged ones (attention: S = 2432 and 77, ``kv_len`` 1 / 64 / 1984 / 2000,
-three stride patterns of the (B, H, S, D) entry; conv: an image smaller than
-a tile, F = 136; int8 linear: M = 1 and 129, K = 16 and 4096 + 16, N = 8, an
-all-zero row, values on rounding ties; tail: every head width, every resize
-ratio, an image smaller than a tile); the attention, conv, int8 and tail
-kernels are run twice on one input and must repeat bit for bit, are timed
-against their library calls inside one interleaved loop (min / median / max
-on the ``kernels`` line; the int8 linear's quantise pass and product also
-apart), and the built library must report the tiling the wrappers compute
-with.
+score mode ``boundmax`` with its key-norm pre-pass, three stride patterns of
+the (B, H, S, D) entry; conv: an image smaller than a tile, F = 136; int8
+linear: M = 1 and 129, K = 16 and 4096 + 16, N = 8, an all-zero row, values
+on rounding ties; tail: every head width, every resize ratio, an image
+smaller than a tile; scan: the insert's real segments, one segment over 146
+tiles, N = 1 and one tile +- 1 row); the fused voxel-map reduce is held bit
+for bit against the unfused route (``torch.sort``, the standalone scan
+kernel, ``torch.nonzero`` compaction) on a full map, an overflowing one, an
+all-invalid batch, a saturating voxel and ``offset_map_merge``, with
+PyTorch's sync debug mode set to fail on any host sync inside an insert or a
+merge. Every kernel is run twice on one input and must repeat bit for bit,
+is timed against its library call (where one exists) inside one interleaved
+loop (min / median / max on the ``kernels`` line; the int8 linear's quantise
+pass and product also apart), and the built library must report the tiling
+the wrappers compute with.
 
 ``main_path`` runs it with the default configuration (attention, DPT tail
-and segmented-scan kernels); ``quant_path`` with ``quant="int8p"`` and
+and fused-reduce kernels); ``quant_path`` with ``quant="int8p"`` and
 ``TXR_FUSED_CONVS=1`` (also the int8 linear and 3x3 conv kernels);
+``boundmax_path`` with ``TXR_ATTN_SCORES=boundmax`` (the bound-shift
+attention kernel and its key-norm pre-pass instead of the f32max kernel);
 ``odd_heads_path`` runs a two-block ViT encoder of 15 heads on the same
 2443-token sequence (the (B, H, S, D) attention entry point).
 
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
-``main_path``, ``quant_path``, ``odd_heads_path``, then the ``kernels``
-summary and, last, the verdict ``{"ok": true, "device": {...}}``. Any
-failing phase raises and the exit code is non-zero; nothing runs on the CPU
-and no kernel is swapped for its plain version. Without a CUDA device the
-script exits with code 2 and prints no result.
+``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``, then
+the ``kernels`` summary and, last, the verdict ``{"ok": true, "device":
+{...}}``. Any failing phase raises and the exit code is non-zero; nothing
+runs on the CPU and no kernel is swapped for its plain version. Without a
+CUDA device the script exits with code 2 and prints no result.
 
 Options (none is needed): ``--frames N`` frames per step (default 8);
 ``--profile`` builds with ``-Xptxas -v`` and adds a ``ptxas`` line (each
 kernel's registers and spills; a spill or a "wgmma serialized" warning
-fails the run) and a ``profile`` line (one extra step under
-``torch.profiler``: device time by kernel, largest first).
+fails the run), an ``insert_profile`` line (one insert at the path's shape
+under ``torch.profiler``: device time by kernel with calls, and the gaps in
+which the device waited for the host) and a ``profile`` line per path (one
+extra step under ``torch.profiler``: device time by kernel, largest
+first).
 """
 
 from __future__ import annotations
@@ -64,8 +75,10 @@ import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
 from txr_torch.core.types import PointSet
-from txr_torch.fusion.offset_map import (create_offset_map,
-                                         offset_map_insert,
+from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
+                                         _reduce_unfused, _sort_keys,
+                                         create_offset_map, offset_map_insert,
+                                         offset_map_merge,
                                          offset_map_scan_inputs,
                                          offset_map_size)
 from txr_torch.models.depth_anything import DepthAnything, build_model
@@ -73,8 +86,9 @@ from txr_torch.models.dpt import DPTConfig
 from txr_torch.models.vit import ViTConfig
 from txr_torch.ops.attention import BLOCK_K as ATTN_BLOCK_K
 from txr_torch.ops.attention import BLOCK_Q as ATTN_BLOCK_Q
-from txr_torch.ops.attention import (attention_flash, attention_plain,
-                                     attention_reference, fused_attention,
+from txr_torch.ops.attention import (attention_flash, attention_key_norm,
+                                     attention_plain, attention_reference,
+                                     fused_attention, key_norm_plain,
                                      split_heads)
 from txr_torch.ops.attention import kernel_geometry as attention_geometry
 from txr_torch.ops.backproject import backproject_world
@@ -92,12 +106,18 @@ from txr_torch.ops.quant_fused import (STAGES, TILE_M, TILE_N,
 from txr_torch.ops.quant_fused import kernel_geometry as int8_geometry
 from txr_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                   compute_da_resize, resize_bicubic)
-from txr_torch.ops.scan import segmented_cumsum_cols
+from txr_torch.ops.scan import ITEMS as SCAN_ITEMS
+from txr_torch.ops.scan import MAX_COLS as SCAN_MAX_COLS
+from txr_torch.ops.scan import THREADS as SCAN_THREADS
+from txr_torch.ops.scan import TILE as SCAN_TILE
+from txr_torch.ops.scan import (offset_reduce, scan_geometry,
+                                segmented_cumsum_cols)
 from txr_torch.ops.segment import segmented_cumsum
 
 # Published dense peaks of one H100 SXM, used for the bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 H, W = 1080, 1920
@@ -317,6 +337,83 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
             "geometry": {**geo, "grid": list(geo["grid"])}}
 
 
+def check_attention_boundmax(batch: int, gen: torch.Generator) -> list:
+    """Score mode ``"boundmax"`` of the attention kernel and its key-norm
+    pre-pass, on the operands of ``check_attention``."""
+    in_h, in_w = compute_da_resize(H, W, 518)
+    s = (in_h // 14) * (in_w // 14) + 1
+    c = 3 * HEADS * HEAD_DIM
+    qkv = torch.randn((batch, s, c), generator=gen, device="cuda",
+                      dtype=torch.float32)
+    qkv[..., :HEADS * HEAD_DIM] *= 3.0          # as in check_attention
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = split_heads(qkv, HEADS, HEAD_DIM)
+
+    kn_err = compare("attention_key_norm", f"B={batch} H={HEADS} S={s}",
+                     attention_key_norm(qkv, HEADS, HEAD_DIM),
+                     key_norm_plain(k), atol=0.0, rtol=1e-6,
+                     why="sums of 64 f32 squares taken in another order "
+                         "(a few ulps of a norm near 11); the max is exact")
+    require_repeatable("attention_key_norm",
+                       lambda: attention_key_norm(qkv, HEADS, HEAD_DIM))
+
+    def bound_mode(x):
+        return fused_attention(x, HEADS, HEAD_DIM, score_mode="boundmax")
+
+    err = compare("attention_boundmax", f"main B={batch} S={s}",
+                  bound_mode(qkv), attention_reference(
+                      qkv, HEADS, HEAD_DIM, score_mode="boundmax"),
+                  **ATTN_TOL)
+    require_repeatable("attention_boundmax", lambda: bound_mode(qkv))
+    # a multiple of both tiles, and one ragged tile with fewer query rows
+    # than a block: the masked keys must add nothing to the row sums
+    for label, x in (("S=2432 B=2", qkv[:2, :2432].contiguous()),
+                     ("S=77 B=1", qkv[:1, :77].contiguous())):
+        compare("attention_boundmax", label, bound_mode(x),
+                attention_reference(x, HEADS, HEAD_DIM,
+                                    score_mode="boundmax"), **ATTN_TOL)
+
+    plain_ms = time_ms(lambda: attention_reference(
+        qkv, HEADS, HEAD_DIM, score_mode="boundmax"), runs=3)
+    kn_plain_ms = time_ms(lambda: key_norm_plain(k), runs=3)
+    spread = time_spread({
+        "boundmax": lambda: bound_mode(qkv),
+        "f32max": lambda: fused_attention(qkv, HEADS, HEAD_DIM,
+                                          score_mode="f32max"),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v),
+        "key_norm": lambda: attention_key_norm(qkv, HEADS, HEAD_DIM)})
+    ms = spread["boundmax"]["median"]
+    flops = 4.0 * batch * HEADS * s * s * HEAD_DIM
+    nbytes = 2.0 * batch * s * (c + HEADS * HEAD_DIM)
+    full = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    kn_bytes = 2.0 * batch * s * HEADS * HEAD_DIM + 4.0 * batch * HEADS
+    kn_ms = spread["key_norm"]["median"]
+    return [{"name": "attention_boundmax", "route": "cuda",
+             "source": "txr_torch/csrc/attention.cu",
+             "replaces": "txr/ops/attention.py:217 (score_mode boundmax of "
+                         "_fused_kernel_1pass, :170)",
+             "shape": [batch, s, c], "max_abs_err": err, "ms": ms,
+             "ms_spread": spread["boundmax"],
+             "ms_includes": "the key-norm pre-pass",
+             "f32max_ms": spread["f32max"]["median"],
+             "f32max_ms_spread": spread["f32max"],
+             "plain_ms": plain_ms, **full,
+             "library_ms": spread["library"]["median"],
+             "library_ms_spread": spread["library"],
+             "library_call": "F.scaled_dot_product_attention",
+             "tflops": flops / ms / 1e9},
+            {"name": "attention_key_norm", "route": "cuda",
+             "source": "txr_torch/csrc/attention.cu",
+             "replaces": "txr/ops/attention.py:223 (max_k |k| inside "
+                         "_fused_kernel_1pass)",
+             "shape": [batch, s, c], "max_abs_err": kn_err, "ms": kn_ms,
+             "ms_spread": spread["key_norm"], "plain_ms": kn_plain_ms,
+             **bound(2.0 * batch * s * HEADS * HEAD_DIM, PEAK_F32_FLOPS,
+                     kn_bytes),
+             "library_ms": None,
+             "gbytes_per_s": kn_bytes / kn_ms / 1e6}]
+
+
 def require_tail_geometry(shape: tuple, sms: int) -> dict:
     """The built library must choose the tile, window and shared memory the
     wrapper computes for ``shape`` = (B, Hin, Win, C, out_h, out_w)."""
@@ -438,6 +535,8 @@ def surface_points(batch: int, shift: float) -> PointSet:
 
 
 def check_scan(batch: int, gen: torch.Generator) -> dict:
+    require_geometry("segscan", kernels.lib().txr_segscan_geometry,
+                     (SCAN_TILE, SCAN_THREADS, SCAN_ITEMS, SCAN_MAX_COLS))
     # Real segment structure: the sorted rows of an insert of `batch` frames
     # into a map that already holds an earlier insert.
     vm = create_offset_map(1 << 21, 0.01)
@@ -451,41 +550,203 @@ def check_scan(batch: int, gen: torch.Generator) -> dict:
         out = segmented_cumsum(torch.stack(cols_, dim=1), starts_)
         return out.t()
 
-    got = torch.stack(segmented_cumsum_cols(wcols, starts))
-    err = compare("segscan", f"main N={n} cols=7 segments={nseg}", got,
-                  plain(wcols, starts), **SCAN_TOL)
+    def kernel(cols_, starts_):
+        return torch.stack(segmented_cumsum_cols(cols_, starts_))
+
+    err = compare("segscan", f"main N={n} cols=7 segments={nseg}",
+                  kernel(wcols, starts), plain(wcols, starts), **SCAN_TOL)
+    require_repeatable("segscan", lambda: kernel(wcols, starts))
 
     m = 1_000_003     # not a multiple of the tile
     vals = (torch.rand((m,), generator=gen, device="cuda"),)
     none = torch.zeros((m,), dtype=torch.bool, device="cuda")
     none[0] = True
     want = torch.cumsum(vals[0].double(), 0).float()[None]
-    compare("segscan", f"start at row 0 only, N={m}",
-            torch.stack(segmented_cumsum_cols(vals, none)), want,
-            atol=1e-3, rtol=1e-5,
+    compare("segscan", f"start at row 0 only, N={m}", kernel(vals, none),
+            want, atol=1e-3, rtol=1e-5,
             why="a plain f32 running sum up to 5e5 (ulp 0.03) against "
                 "float64")
     every = torch.ones((m,), dtype=torch.bool, device="cuda")
-    compare("segscan", f"start at every row, N={m}",
-            torch.stack(segmented_cumsum_cols(vals, every)), vals[0][None],
-            atol=0.0, rtol=0.0, why="every row is its own segment: exact")
+    compare("segscan", f"start at every row, N={m}", kernel(vals, every),
+            vals[0][None], atol=0.0, rtol=0.0,
+            why="every row is its own segment: exact")
+    # one segment over many tiles (a voxel hit by 300,000 rows) between
+    # short ones
+    long = torch.rand((m,), generator=gen, device="cuda") < 0.3
+    long[200_000:500_000] = False
+    long[200_000] = True
+    ref = torch.zeros((m,), dtype=torch.float64, device="cuda")
+    ref[200_000:500_000] = torch.cumsum(vals[0][200_000:500_000].double(), 0)
+    got = kernel(vals, long)[0]
+    compare("segscan", "one segment of 300,000 rows (146 tiles)",
+            got[200_000:500_000], ref[200_000:500_000].float(), atol=1e-3,
+            rtol=1e-5, why="a plain f32 running sum up to 1.5e5 against "
+                           "float64")
+    compare("segscan", "short segments around the long one", got,
+            plain(vals, long)[0], **SCAN_TOL)
     eight = tuple(torch.randn((4099,), generator=gen, device="cuda")
                   for _ in range(8))
     st = torch.rand((4099,), generator=gen, device="cuda") < 0.01
     compare("segscan", "8 columns, N=4099, long segments",
-            torch.stack(segmented_cumsum_cols(eight, st)), plain(eight, st),
-            atol=1e-3, rtol=1e-5, why=SCAN_TOL["why"])
+            kernel(eight, st), plain(eight, st), atol=1e-3, rtol=1e-5,
+            why=SCAN_TOL["why"])
+    # one row; one tile less, one row short of and past a tile, two tiles
+    for rows in (1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 2 * SCAN_TILE):
+        cols = tuple(c[:rows].contiguous() for c in eight[:3])
+        sub = st[:rows].contiguous()
+        compare("segscan", f"N={rows} cols=3, "
+                f"{scan_geometry(rows)['tiles']} tile(s)", kernel(cols, sub),
+                plain(cols, sub), **SCAN_TOL)
 
-    ms = time_ms(lambda: segmented_cumsum_cols(wcols, starts))
     plain_ms = time_ms(lambda: plain(wcols, starts), runs=3)
+    spread = time_spread({"kernel": lambda: segmented_cumsum_cols(wcols,
+                                                                  starts)},
+                         runs=10)
+    ms = spread["kernel"]["median"]
     nbytes = n * (7 * 4 + 1 + 7 * 4)
     return {"name": "segscan", "route": "cuda",
             "source": "txr_torch/csrc/segscan.cu",
             "replaces": "txr/ops/scan.py:40",
             "shape": [7, n], "segments": nseg, "resident_voxels": resident,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "ms_spread": spread["kernel"],
+            "plain_ms": plain_ms,
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-            "library_ms": None, "gbytes_per_s": nbytes / ms / 1e6}
+            "library_ms": None, "gbytes_per_s": nbytes / ms / 1e6,
+            "geometry": scan_geometry(n)}
+
+
+def require_maps_equal(case: str, got, want) -> int:
+    """The fused reduce's map against the unfused route's, column by column,
+    bit for bit; returns the voxels held."""
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(g, w)) for g, w in zip(got[:NCOLS],
+                                                     want[:NCOLS])]
+    voxels = int(offset_map_size(got))
+    emit({"phase": "kernel_check", "kernel": "offset_reduce", "case": case,
+          "rows": got.khi.shape[0], "voxels": voxels,
+          "columns_bit_equal": dict(zip(("khi", "klo_x", "yzw", "rgb"),
+                                        same)),
+          "tolerance_reason": "the same scan core and summation order as "
+                              "the standalone scan kernel of the unfused "
+                              "route, and the same f32 operations after it: "
+                              "bit-equal",
+          "ok": all(same)})
+    if not all(same):
+        raise AssertionError(f"offset_reduce/{case}: the fused reduce "
+                             f"differs from the unfused route ({same})")
+    return voxels
+
+
+def check_offset_reduce(batch: int, gen: torch.Generator) -> dict:
+    """The insert's fused segment reduce against the unfused route on the
+    card (``torch.sort``, the standalone scan kernel, ``torch.nonzero``
+    compaction), with no host sync inside an insert or a merge."""
+    in_h, in_w = compute_da_resize(H, W, 518)
+    n_batch = batch * in_h * in_w
+    cap = 1 << 21
+
+    def both(case, cols, cap_, vs, fused):
+        return require_maps_equal(case, fused,
+                                  _reduce_unfused(cols, cap_, vs))
+
+    def insert(vm, pts):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return offset_map_insert(vm, pts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    # path shape: a full map and a batch of scattered points
+    vm = insert(create_offset_map(cap, 0.01), scattered_points(n_batch, gen))
+    if int(offset_map_size(vm)) != cap:
+        raise AssertionError("offset_reduce: the map should be full")
+    pts = scattered_points(n_batch, gen)
+    cols = _insert_cols(vm, pts)
+    n = cols[0].shape[0]
+    fused = insert(vm, pts)
+    both(f"full map + {n_batch} scattered points, N={n}", cols, cap,
+         vm.voxel_size, fused)
+    again = insert(vm, pts)
+    if not all(torch.equal(a, b) for a, b in zip(fused[:NCOLS],
+                                                   again[:NCOLS])):
+        raise AssertionError("offset_reduce: two inserts of one batch differ")
+    emit({"phase": "kernel_check", "kernel": "offset_reduce",
+          "case": "two runs on one input are bit-equal", "ok": True})
+    del fused, again
+    # real segment structure: a surface seen twice, long voxel segments
+    sv = insert(create_offset_map(cap, 0.01), surface_points(batch, 0.0))
+    sp = surface_points(batch, 0.4)
+    both(f"surface map + surface frames, N={cap + n_batch}",
+         _insert_cols(sv, sp), cap, sv.voxel_size, insert(sv, sp))
+    # an overflowing small map keeps its lowest voxel keys
+    small = insert(create_offset_map(4096, 0.01), scattered_points(3000, gen))
+    more = scattered_points(5000, gen)
+    got = insert(small, more)
+    both("overflow, cap 4096, 3000 + 5000 voxels", _insert_cols(small, more),
+         4096, small.voxel_size, got)
+    skey, _ = _sort_keys(_insert_cols(small, more))
+    lowest = torch.unique_consecutive(skey >> 10)[:4096]
+    kept = (got.khi.long() << 22) | ((got.klo_x.long() + (1 << 31)) >> 10)
+    if not torch.equal(kept, lowest):
+        raise AssertionError("offset_reduce: an overflowing map must keep "
+                             "its lowest keys")
+    # an all-invalid batch leaves a non-empty map as it was
+    dead = PointSet(torch.full((1000, 3), float("nan"), device="cuda"),
+                    torch.zeros((1000, 3), device="cuda"),
+                    torch.zeros((1000,), dtype=torch.bool, device="cuda"))
+    same = insert(small, dead)
+    both("all-invalid batch into a map of 3000", _insert_cols(small, dead),
+         4096, small.voxel_size, same)
+    if not all(torch.equal(a, b) for a, b in zip(same[:NCOLS],
+                                                   small[:NCOLS])):
+        raise AssertionError("offset_reduce: an all-invalid batch changed "
+                             "the map")
+    # a voxel whose weight saturates at 2047
+    one = PointSet(torch.full((50_000, 3), 0.25, device="cuda"),
+                   torch.tensor([[0.5, 0.25, 0.75]],
+                                device="cuda").expand(50_000, 3),
+                   torch.ones((50_000,), dtype=torch.bool, device="cuda"))
+    first = insert(create_offset_map(64, 1.0), one)
+    sat = insert(first, one)
+    both("weight-saturating voxel, 2 x 50,000 rows",
+         _insert_cols(first, one), 64, sat.voxel_size, sat)
+    if int((sat.yzw & 0x7FF).max()) != 2047:
+        raise AssertionError("offset_reduce: the weight did not saturate")
+    # the merge of two maps goes through the same kernel
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        merged = offset_map_merge(sv, vm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    both("offset_map_merge of two 2^21 maps",
+         tuple(torch.cat([x, y]) for x, y in zip(sv[:NCOLS], vm[:NCOLS])),
+         cap, sv.voxel_size, merged)
+
+    # timing at the path shape: the kernel alone on the sorted key (it
+    # rewrites the same rows each time), against the unfused route after
+    # the same sort
+    skey, perm = _sort_keys(cols)
+    out = tuple(create_offset_map(cap, 0.01)[:NCOLS])
+    spread = time_spread({
+        "kernel": lambda: offset_reduce(skey, perm, cols[2], cols[3], out),
+        "sort": lambda: _sort_keys(cols),
+        "unfused_with_sort": lambda: _reduce_unfused(cols, cap,
+                                                     vm.voxel_size),
+        "insert": lambda: offset_map_insert(vm, pts)}, runs=10)
+    ms = spread["kernel"]["median"]
+    nbytes = n * (8 + 8 + 4 + 4) + 16.0 * cap
+    return {"entry": "txr_offset_reduce_fwd", "shape": [n],
+            "kept_voxels": cap, "ms": ms, "ms_spread": spread["kernel"],
+            "sort_ms": spread["sort"]["median"],
+            "unfused_ms": spread["unfused_with_sort"]["median"]
+            - spread["sort"]["median"],
+            "unfused_with_sort_ms": spread["unfused_with_sort"]["median"],
+            "unfused_route": "torch gathers and elementwise unpack, the "
+                             "standalone scan kernel, torch.nonzero "
+                             "compaction, torch repack",
+            "insert_ms": spread["insert"]["median"],
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "gbytes_per_s": nbytes / ms / 1e6}
 
 
 def bound(ops: float, peak_ops: float, nbytes: float) -> dict:
@@ -961,9 +1222,9 @@ def drive_path(phase: str, frames: int, profile: bool, expect: dict,
     """Drive frames -> depth -> back-projection -> voxel map with the model
     ``build_model("v2", "vitl", **model_kwargs)`` builds: one warm-up step,
     STEPS timed steps, one step with events between the stages. ``expect``
-    maps a kernel to its launches per step (asserted; ``segscan`` at
-    least). Emits the phase's line and returns it with the depth of the
-    staged step (frames of seed 0)."""
+    maps a kernel to its launches per step (asserted for every counter).
+    Returns the phase's line and the depth of the staged step (frames of
+    seed 0)."""
     in_h, in_w = compute_da_resize(H, W, 518)
     gen = torch.Generator(device="cpu").manual_seed(0)
     model, vit_cfg, dpt_cfg = build_model("v2", "vitl", dtype=torch.bfloat16,
@@ -1024,11 +1285,7 @@ def drive_path(phase: str, frames: int, profile: bool, expect: dict,
     total = STEPS + 1
     for name, got in counts.items():
         per_step = expect.get(name, 0)
-        if name == "segscan":
-            ok = got >= per_step * total
-        else:
-            ok = got == per_step * total
-        if not ok:
+        if got != per_step * total:
             raise AssertionError(
                 f"{phase}: {got} launches of {name} over {total} steps, "
                 f"expected {per_step} per step; all counts {counts}")
@@ -1071,38 +1328,65 @@ def drive_path(phase: str, frames: int, profile: bool, expect: dict,
 
 
 def main_path(frames: int, profile: bool) -> tuple:
-    """The default configuration: attention, tail and scan kernels."""
+    """The default configuration: attention, tail and fused-reduce
+    kernels."""
     out, depth = drive_path("main_path", frames, profile,
-                            {"attention": 24, "dpt_tail": 1, "segscan": 1})
+                            {"attention": 24, "dpt_tail": 1,
+                             "offset_reduce": 1})
     emit(out)
     return out, depth
 
 
-def quant_path(frames: int, profile: bool, main_depth: torch.Tensor) -> dict:
-    """The int8 encoder with the 3x3 conv kernel in the head, as a user
-    reaches them: ``quant="int8p"`` and ``TXR_FUSED_CONVS=1`` /
-    ``TXR_FUSED_HEAD=1``. Same weights and frames as ``main_path``."""
-    saved = {k: os.environ.get(k) for k in ("TXR_FUSED_CONVS",
-                                            "TXR_FUSED_HEAD")}
-    os.environ.update(TXR_FUSED_CONVS="1", TXR_FUSED_HEAD="1")
+def path_with_env(phase: str, env: dict, frames: int, profile: bool,
+                  expect: dict, main_depth: torch.Tensor,
+                  **model_kwargs) -> dict:
+    """``drive_path`` with ``env`` set in the environment (restored
+    afterwards), and its depth against ``main_path``'s (same weights and
+    frames) as a share of main_path's depth span."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
-        out, depth = drive_path(
-            "quant_path", frames, profile,
-            {"attention": 24, "dpt_tail": 1, "segscan": 1, "int8_linear": 96,
-             "conv3x3": 9}, quant="int8p")
+        out, depth = drive_path(phase, frames, profile, expect,
+                                **model_kwargs)
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    if not (out["fused_convs"] and out["fused_head"]):
-        raise AssertionError("quant_path: the fused head settings are off")
     span = (main_depth.max() - main_depth.min()).item()
     diff = (depth - main_depth).abs() / span
     out["depth_vs_main_path"] = {
         "median_share_of_span": diff.median().item(),
         "max_share_of_span": diff.max().item(), "main_depth_span": span}
+    return out
+
+
+def quant_path(frames: int, profile: bool, main_depth: torch.Tensor) -> dict:
+    """The int8 encoder with the 3x3 conv kernel in the head, as a user
+    reaches them: ``quant="int8p"`` and ``TXR_FUSED_CONVS=1`` /
+    ``TXR_FUSED_HEAD=1``. Same weights and frames as ``main_path``."""
+    out = path_with_env(
+        "quant_path", {"TXR_FUSED_CONVS": "1", "TXR_FUSED_HEAD": "1"},
+        frames, profile,
+        {"attention": 24, "dpt_tail": 1, "offset_reduce": 1,
+         "int8_linear": 96, "conv3x3": 9}, main_depth, quant="int8p")
+    if not (out["fused_convs"] and out["fused_head"]):
+        raise AssertionError("quant_path: the fused head settings are off")
+    emit(out)
+    return out
+
+
+def boundmax_path(frames: int, profile: bool,
+                  main_depth: torch.Tensor) -> dict:
+    """``main_path``'s configuration with ``TXR_ATTN_SCORES=boundmax``,
+    as a user selects the score mode: every attention call takes the
+    bound-shift kernel and its key-norm pre-pass, none the f32max one."""
+    out = path_with_env(
+        "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames, profile,
+        {"attention_boundmax": 24, "attention_key_norm": 24, "dpt_tail": 1,
+         "offset_reduce": 1}, main_depth)
+    out["score_mode"] = "boundmax"
     emit(out)
     return out
 
@@ -1178,6 +1462,60 @@ def profile_step(phase: str, run_step) -> None:
           "rest_ms": sum(r["ms"] for r in rows[30:])})
 
 
+def scattered_points(n: int, gen: torch.Generator) -> PointSet:
+    """``n`` valid points spread over a 6 m cube: at 1 cm nearly every point
+    is a voxel of its own, so one insert of a path step fills a 2^21 map."""
+    return PointSet(torch.rand((n, 3), generator=gen, device="cuda") * 6 - 3,
+                    torch.rand((n, 3), generator=gen, device="cuda"),
+                    torch.ones((n,), dtype=torch.bool, device="cuda"))
+
+
+def insert_profile(frames: int) -> dict:
+    """One ``offset_map_insert`` at the path's shape (a full 2^21 map at
+    1 cm, ``frames`` x 478,632 points) under ``torch.profiler``: device time
+    by kernel with calls, and the gaps in which the device waited for the
+    host between two kernels of the insert."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    in_h, in_w = compute_da_resize(H, W, 518)
+    n = frames * in_h * in_w
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vm = offset_map_insert(create_offset_map(1 << 21, 0.01),
+                           scattered_points(n, gen))
+    if int(offset_map_size(vm)) != 1 << 21:
+        raise AssertionError("insert_profile: the map is not full")
+    pts = scattered_points(n, gen)
+    ms = time_ms(lambda: offset_map_insert(vm, pts), runs=5, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        offset_map_insert(vm, pts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.key)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_name = {}
+    for start, end, name in spans:
+        row = by_name.setdefault(name[:90], {"name": name[:90], "calls": 0,
+                                             "ms": 0.0})
+        row["calls"] += 1
+        row["ms"] += (end - start) / 1e3
+    gaps = [{"us": b[0] - a[1], "before": b[2][:60]}
+            for a, b in zip(spans, spans[1:]) if b[0] > a[1]]
+    busy = sum(r["ms"] for r in by_name.values())
+    out = {"phase": "insert_profile", "rows": (1 << 21) + n,
+           "batch_points": n, "map_capacity": 1 << 21, "ms": ms,
+           "wall_ms_under_profiler": wall_ms, "device_ms": busy,
+           "first_to_last_kernel_ms": (spans[-1][1] - spans[0][0]) / 1e3,
+           "gap_ms": sum(g["us"] for g in gaps) / 1e3,
+           "largest_gaps": sorted(gaps, key=lambda g: -g["us"])[:5],
+           "kernels_by_device_ms": sorted(by_name.values(),
+                                          key=lambda r: -r["ms"])}
+    emit(out)
+    return out
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and static shared memory of each kernel, from the
     output of ``nvcc -Xptxas -v``."""
@@ -1245,30 +1583,45 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = []
-    for check in (check_attention, check_attention_bhsd, check_tail,
-                  check_scan, check_int8_linear, check_conv3x3):
-        summary.append(check(args.frames, gen))
+    for check in (check_attention, check_attention_boundmax,
+                  check_attention_bhsd, check_tail, check_scan,
+                  check_int8_linear, check_conv3x3):
+        rows = check(args.frames, gen)
+        summary.extend(rows if isinstance(rows, list) else [rows])
         torch.cuda.empty_cache()
+    # row 3 carries both entries of the scan core; its launches are the
+    # fused reduce's, which is what the paths run
+    scan_row = next(k for k in summary if k["name"] == "segscan")
+    scan_row["offset_reduce"] = check_offset_reduce(args.frames, gen)
+    scan_row["counter"] = "offset_reduce"
+    torch.cuda.empty_cache()
     check_reference(gen)
     torch.cuda.empty_cache()
+    if args.profile:
+        insert_profile(args.frames)
+        torch.cuda.empty_cache()
 
     run, main_depth = main_path(args.frames, args.profile)
     torch.cuda.empty_cache()
     qrun = quant_path(args.frames, args.profile, main_depth)
+    torch.cuda.empty_cache()
+    brun = boundmax_path(args.frames, args.profile, main_depth)
     del main_depth
     torch.cuda.empty_cache()
     orun = odd_heads_path(args.frames, gen)
-    runs = {"main_path": run, "quant_path": qrun, "odd_heads_path": orun}
+    runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
+            "odd_heads_path": orun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
-        by_path = {name: r["launches"][k["name"]] for name, r in runs.items()}
+        counter = k.get("counter", k["name"])
+        by_path = {name: r["launches"][counter] for name, r in runs.items()}
         k["launches_by_path"] = by_path
         path = next((name for name, n in by_path.items() if n), "main_path")
         k["launches"] = by_path[path]
         k["launches_in"] = path
         k["launches_over_steps"] = runs[path]["launches_over_steps"]
         if k["launches"] < 1:
-            raise AssertionError(f"no path launched {k['name']}")
+            raise AssertionError(f"no path launched {counter}")
     emit({"phase": "device", "nvidia_smi_name_power_limit": smi})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -86,6 +86,108 @@ class TestAttentionParity:
             pa.fused_attention(x, H, D, kv_len=5)
 
 
+class TestBoundmaxParity:
+    """Score mode ``"boundmax"`` against ``txr``'s single-pass kernel in
+    that mode (interpret mode), which zero-pads S to its block and removes
+    the pads' mass from the normaliser where the port masks."""
+
+    @pytest.mark.parametrize("s", [64, 75, 130])
+    def test_f32_matches_txr_kernel(self, s):
+        """f32 3e-5, txr's own tolerance for this mode; S = 75 and 130 are
+        multiples of no block."""
+        x = _qkv(2, s, seed=20 + s)
+        want = np.asarray(ja.attention_flash_fused(
+            jnp.asarray(x), H, D, block_q=16, score_mode="boundmax"))
+        got = pa.fused_attention(torch.from_numpy(x), H, D,
+                                 score_mode="boundmax")
+        np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+        ref = np.asarray(ja._fused_reference(jnp.asarray(x), H, D))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=3e-5, atol=3e-5)
+
+    @pytest.mark.parametrize("s", [17, 130])
+    def test_bf16_matches_txr_kernel(self, s):
+        """bf16 2e-2: both round q c and p to bf16."""
+        x = _qkv(1, s, seed=30 + s)
+        want = np.asarray(ja.attention_flash_fused(
+            jnp.asarray(x).astype(jnp.bfloat16), H, D, block_q=16,
+            score_mode="boundmax").astype(jnp.float32))
+        got = pa.fused_attention(torch.from_numpy(x).to(torch.bfloat16), H,
+                                 D, score_mode="boundmax")
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                                   atol=2e-2)
+
+    @pytest.mark.parametrize("scale", [6.0, 8.0])
+    def test_extreme_logits_finite_and_equal(self, scale):
+        """Logits far past the bound's 83 nats saturate p at 2^60 on both
+        sides; the results stay finite and agree to the bf16 tolerance."""
+        h, d, s = 2, 64, 64
+        x = (np.random.default_rng(40).standard_normal((1, s, 3 * h * d))
+             * scale).astype(np.float32)
+        want = np.asarray(ja.attention_flash_fused(
+            jnp.asarray(x), h, d, block_q=32, score_mode="boundmax"))
+        got = pa.fused_attention(torch.from_numpy(x), h, d,
+                                 score_mode="boundmax").numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+    def test_env_is_read_at_call_time(self, monkeypatch):
+        x = torch.from_numpy(_qkv(2, 33, seed=41) * 3.0)
+        bound = pa.attention_reference(x, H, D, score_mode="boundmax")
+        exact = pa.attention_reference(x, H, D, score_mode="f32max")
+        assert not torch.equal(bound, exact)
+        monkeypatch.setenv("TXR_ATTN_SCORES", "boundmax")
+        assert torch.equal(pa.fused_attention(x, H, D), bound)
+        monkeypatch.setenv("TXR_ATTN_SCORES", "f32max")
+        assert torch.equal(pa.fused_attention(x, H, D), exact)
+        monkeypatch.delenv("TXR_ATTN_SCORES")
+        assert torch.equal(pa.fused_attention(x, H, D), exact)
+
+    def test_kv_len_and_bhsd_routes_ignore_the_mode(self, monkeypatch):
+        """txr's streaming and (B, H, S, D) kernels take no score mode."""
+        x = _qkv(2, 40, seed=42)
+        want = np.asarray(ja.attention_flash_fused(
+            jnp.asarray(x), H, D, kv_len=25, block_q=16,
+            score_mode="boundmax"))
+        xt = torch.from_numpy(x)
+        got = pa.fused_attention(xt, H, D, 25, score_mode="boundmax")
+        np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+        assert torch.equal(got, pa.fused_attention(xt, H, D, 25,
+                                                   score_mode="f32max"))
+        q, k, v = pa.split_heads(xt, H, D)
+        plain = pa.attention_flash(q, k, v)
+        monkeypatch.setenv("TXR_ATTN_SCORES", "boundmax")
+        assert torch.equal(pa.attention_flash(q, k, v), plain)
+
+    def test_unknown_mode_raises(self, monkeypatch):
+        x = torch.zeros((1, 4, 3 * H * D))
+        with pytest.raises(ValueError):
+            pa.fused_attention(x, H, D, score_mode="bf16max")
+        monkeypatch.setenv("TXR_ATTN_SCORES", "nope")
+        with pytest.raises(ValueError):
+            pa.fused_attention(x, H, D)
+        with pytest.raises(ValueError):
+            pa.attention_reference(x, H, D)
+
+    def test_key_norm_and_backward(self):
+        """The pre-pass's plain version against numpy; the backward in this
+        mode differentiates the f32max reference, as txr's custom VJP."""
+        x = _qkv(2, 11, seed=43)
+        k = x[..., H * D:2 * H * D].reshape(2, 11, H, D)
+        want = np.sqrt((k.astype(np.float64) ** 2).sum(-1).max(1))
+        got = pa.attention_key_norm(torch.from_numpy(x), H, D)
+        assert got.shape == (2, H) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        g = torch.from_numpy(np.random.default_rng(44).standard_normal(
+            (2, 11, H * D)).astype(np.float32))
+        grads = []
+        for mode in ("boundmax", "f32max"):
+            xt = torch.from_numpy(x).requires_grad_(True)
+            pa.fused_attention(xt, H, D, score_mode=mode).backward(g)
+            grads.append(xt.grad)
+        assert torch.equal(grads[0], grads[1])
+
+
 def _bhsd(b, h, s, d, seed):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal((b, h, s, d)).astype(np.float32)

@@ -323,3 +323,71 @@ class TestOffsetMapParity:
         sel = np.argmin(np.abs(pts[:, 0] - 0.3))
         assert np.allclose(pts[sel], ref[0][0], atol=1e-6)
         assert np.allclose(cols[sel], ref[1][0], atol=1e-6)
+
+
+class TestReduceAcrossTiles:
+    """What the fused reduce on the card must also get right, held here
+    against txr through the port's plain route (the scan kernel's tile is
+    2048 rows, ``txr_torch.ops.scan.TILE``)."""
+
+    def test_one_voxel_longer_than_a_tile(self):
+        rng = np.random.default_rng(7)
+        n = 5000                      # 3000 rows in one voxel, then others
+        xyz = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        xyz[:3000] = rng.uniform(0.30, 0.34, (3000, 3))
+        rgb = rng.random((n, 3)).astype(np.float32)
+        m = np.ones(n, bool)
+        want = jo.offset_map_insert(jo.create_offset_map(4096, 0.05),
+                                    jps(xyz, rgb, m))
+        got = po.offset_map_insert(po.create_offset_map(4096, 0.05,
+                                                        device="cpu"),
+                                   tps(xyz, rgb, m))
+        assert_maps_agree(got, want)
+        assert weights(got.yzw.numpy()).max() == po.W_MAX   # 3000 rows
+
+    def test_rows_not_a_multiple_of_the_tile(self):
+        rng = np.random.default_rng(8)
+        vm_j = jo.create_offset_map(1000, 0.1)
+        vm_p = po.create_offset_map(1000, 0.1, device="cpu")
+        for n in (1501, 2049):        # 2501 and 3049 rows with the map
+            xyz = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+            rgb = rng.random((n, 3)).astype(np.float32)
+            m = rng.random(n) < 0.95
+            vm_j = jo.offset_map_insert(vm_j, jps(xyz, rgb, m))
+            vm_p = po.offset_map_insert(vm_p, tps(xyz, rgb, m))
+            assert_maps_agree(vm_p, vm_j)
+
+    def test_all_invalid_batch_into_a_non_empty_map(self):
+        rng = np.random.default_rng(9)
+        xyz = rng.uniform(-1, 1, (700, 3)).astype(np.float32)
+        rgb = rng.random((700, 3)).astype(np.float32)
+        m = np.ones(700, bool)
+        vm_p = po.offset_map_insert(po.create_offset_map(1024, 0.1,
+                                                         device="cpu"),
+                                    tps(xyz, rgb, m))
+        vm_j = jo.offset_map_insert(jo.create_offset_map(1024, 0.1),
+                                    jps(xyz, rgb, m))
+        dead = np.full((300, 3), np.nan, np.float32)
+        none = np.zeros(300, bool)
+        got = po.offset_map_insert(vm_p, tps(dead, dead, none))
+        assert_maps_agree(got, jo.offset_map_insert(vm_j,
+                                                    jps(dead, dead, none)))
+        for g, w in zip(got[:po.NCOLS], vm_p[:po.NCOLS]):
+            assert torch.equal(g, w)           # a stable map stays bit-equal
+
+    @pytest.mark.parametrize("cap", [64, 200])
+    def test_overflow_and_saturation_at_a_capacity(self, cap):
+        rng = np.random.default_rng(cap)
+        xyz = rng.uniform(0, 10, (2100 + 3 * cap, 3)).astype(np.float32)
+        xyz[:2100] = [0.005, 0.005, 0.005]     # one voxel past 2047 rows
+        rgb = rng.random((len(xyz), 3)).astype(np.float32)
+        m = np.ones(len(xyz), bool)
+        got = po.offset_map_insert(po.create_offset_map(cap, 0.01,
+                                                        device="cpu"),
+                                   tps(xyz, rgb, m))
+        want = jo.offset_map_insert(jo.create_offset_map(cap, 0.01),
+                                    jps(xyz, rgb, m))
+        assert_maps_agree(got, want)
+        assert int(po.offset_map_size(got)) == cap
+        assert weights(got.yzw.numpy()).max() == po.W_MAX
+        assert np.all(np.diff(got.khi.numpy().astype(np.int64)) >= 0)

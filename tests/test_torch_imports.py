@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -112,24 +113,37 @@ def test_sources_keep_library_calls_off_the_kernel_path():
 def test_every_kernel_has_a_launch_count():
     import txr_torch._cuda as k
 
-    assert set(k.launches) == {"attention", "attention_bhsd", "dpt_tail",
-                               "segscan", "int8_linear", "conv3x3"}
+    assert set(k.launches) == {"attention", "attention_boundmax",
+                               "attention_key_norm", "attention_bhsd",
+                               "dpt_tail", "segscan", "offset_reduce",
+                               "int8_linear", "conv3x3"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
 
 
-@pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd"])
+@pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd",
+                                  "attention_boundmax", "offset_map_insert"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
     import txr_torch._cuda as k
-    from txr_torch.ops.attention import attention_flash
+    from txr_torch.core.types import PointSet
+    from txr_torch.fusion.offset_map import (create_offset_map,
+                                             offset_map_insert)
+    from txr_torch.ops.attention import attention_flash, fused_attention
     from txr_torch.ops.conv_stripe import conv3x3_stripe
     from txr_torch.ops.quant_fused import int8_linear
 
     k.reset_launches()
-    if call == "int8_linear":
+    if call == "attention_boundmax":
+        fused_attention(torch.ones(1, 4, 3 * 2 * 64), 2, 64,
+                        score_mode="boundmax")
+    elif call == "offset_map_insert":
+        offset_map_insert(create_offset_map(8, 0.1, device="cpu"),
+                          PointSet.from_numpy(np.ones((3, 3), np.float32),
+                                              device="cpu"))
+    elif call == "int8_linear":
         int8_linear(torch.ones(4, 16), torch.ones(16, 8))
     elif call == "conv3x3":
         conv3x3_stripe(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8),

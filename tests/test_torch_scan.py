@@ -13,7 +13,8 @@ import torch
 
 from txr.ops.segment import INT_MAX as J_INT_MAX
 from txr.ops.segment import segmented_cumsum as j_segmented_cumsum
-from txr_torch.ops.scan import segmented_cumsum_cols
+from txr_torch.ops.scan import (ITEMS, MAX_COLS, THREADS, TILE, scan_geometry,
+                                segmented_cumsum_cols)
 from txr_torch.ops.segment import INT_MAX, segmented_cumsum
 
 torch.set_num_threads(1)
@@ -82,3 +83,60 @@ class TestScanParity:
         with pytest.raises(ValueError):
             segmented_cumsum_cols((z,) * 9, s)
         assert INT_MAX == int(J_INT_MAX) == 2 ** 31 - 1
+
+
+class TestScanGeometry:
+    """The launch the scan kernel is sized by (pure Python; the kernel runs
+    only on the card, where ``chip_smoke.py`` checks that the built library
+    reports the same tile)."""
+
+    @pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 5_926_208])
+    def test_tiles_and_scratch(self, n):
+        geo = scan_geometry(n)
+        tiles = geo["tiles"]
+        assert (tiles - 1) * TILE < n <= tiles * TILE
+        assert geo["threads"] == THREADS
+        # counter + (status, aggregate count, inclusive count) per tile
+        assert geo["int_words"] == 1 + 3 * tiles
+        # an aggregate and an inclusive prefix of every column per tile
+        assert geo["float_words"] == 2 * MAX_COLS * tiles
+        # only the counter and the status words are reset per launch
+        assert geo["reset_bytes"] == 4 * (1 + tiles)
+        assert geo["scratch_bytes"] == 4 * (geo["int_words"]
+                                            + geo["float_words"])
+
+    def test_path_shape_and_tile(self):
+        assert TILE == THREADS * ITEMS == 2048 and MAX_COLS == 8
+        # a full 2^21 map and 8 frames of 518 x 924 points
+        assert scan_geometry((1 << 21) + 8 * 518 * 924)["tiles"] == 2894
+        with pytest.raises(ValueError):
+            scan_geometry(0)
+
+
+class TestScanAcrossTiles:
+    """What the one-pass kernel must also get right, held here against txr
+    and the loop oracle through the plain version."""
+
+    @pytest.mark.parametrize("case", ["one segment over three tiles",
+                                      "ragged last tile"])
+    def test_long_and_ragged(self, case):
+        rng = np.random.default_rng(len(case))
+        if case == "one segment over three tiles":
+            n = 3 * TILE + 100
+            starts = rng.random(n) < 0.05
+            starts[50:50 + 2 * TILE + 300] = False
+            starts[50] = True
+        else:
+            n = 2 * TILE + 7
+            starts = rng.random(n) < 0.3
+        vals = rng.random((n, 3)).astype(np.float32)
+        got = segmented_cumsum_cols(
+            tuple(torch.from_numpy(np.ascontiguousarray(vals[:, i]))
+                  for i in range(3)), torch.from_numpy(starts))
+        got = np.stack([g.numpy() for g in got], axis=1)
+        want = np.asarray(j_segmented_cumsum(jnp.asarray(vals),
+                                             jnp.asarray(starts)))
+        # f32 sums of up to 4400 values in [0, 1)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(got, oracle(vals, starts), rtol=1e-5,
+                                   atol=1e-3)

@@ -2,9 +2,11 @@
 """Stand-alone check for work on one CUDA kernel of ``txr_torch``.
 
     timeout 240 python3 tools/kernel_dev.py attention
+    timeout 240 python3 tools/kernel_dev.py boundmax
     timeout 240 python3 tools/kernel_dev.py conv
     timeout 240 python3 tools/kernel_dev.py int8
     timeout 240 python3 tools/kernel_dev.py tail
+    timeout 240 python3 tools/kernel_dev.py scan
 
 builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
 the chosen source (registers, spills, and the "wgmma ... serialized"
@@ -27,10 +29,15 @@ import torch
 import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
-from chip_smoke import (ATTN_TOL, CONV_TOL, TAIL_TOL, compare, compare_bits,
-                        int8_parts, time_spread)
-from txr_torch.ops.attention import (attention_flash, attention_plain,
-                                     attention_reference, fused_attention,
+from chip_smoke import (ATTN_TOL, CONV_TOL, SCAN_TOL, TAIL_TOL, compare,
+                        compare_bits, int8_parts, scattered_points,
+                        time_spread)
+from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
+                                         _reduce_unfused, _sort_keys,
+                                         create_offset_map, offset_map_insert)
+from txr_torch.ops.attention import (attention_flash, attention_key_norm,
+                                     attention_plain, attention_reference,
+                                     fused_attention, key_norm_plain,
                                      split_heads)
 from txr_torch.ops.conv_stripe import (conv3x3_reference, conv3x3_stripe,
                                        pack_weight)
@@ -39,6 +46,8 @@ from txr_torch.ops.dpt_tail import (fused_head_tail, head_tail_reference,
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import (Int8LinearFused, int8_linear,
                                        int8_linear_reference)
+from txr_torch.ops.scan import TILE, offset_reduce, segmented_cumsum_cols
+from txr_torch.ops.segment import segmented_cumsum
 
 HEADS, HEAD_DIM = 16, 64
 
@@ -48,7 +57,8 @@ def ptxas_lines(source: str) -> None:
     start = log.find(f"== {source} ==")
     end = log.find("\n== ", start + 1)
     for line in log[start:end if end > 0 else None].splitlines():
-        if any(key in line for key in ("==", "C75", "Used", "spill")):
+        if any(key in line for key in ("==", "C75", "Used", "spill",
+                                       "Compiling entry")):
             print(line[:200], flush=True)
 
 
@@ -98,6 +108,85 @@ def attention(gen) -> bool:
         q, k, v = split_heads(x, HEADS, HEAD_DIM)
         spread({"kernel": lambda: fused_attention(x, HEADS, HEAD_DIM),
                 "library": lambda: F.scaled_dot_product_attention(q, k, v)})
+    return ok
+
+
+def boundmax(gen) -> bool:
+    tol = ATTN_TOL
+
+    def qkv(b, s):
+        x = torch.randn((b, s, 3 * HEADS * HEAD_DIM), generator=gen,
+                        device="cuda")
+        x[..., :HEADS * HEAD_DIM] *= 3.0      # a peaked softmax
+        return x.to(torch.bfloat16)
+
+    def run(x):
+        return fused_attention(x, HEADS, HEAD_DIM, score_mode="boundmax")
+
+    ok = True
+    x = qkv(2, 2443)
+    ok &= check("attention_key_norm S=2443",
+                attention_key_norm(x, HEADS, HEAD_DIM),
+                key_norm_plain(split_heads(x, HEADS, HEAD_DIM)[1]),
+                dict(atol=0.0, rtol=1e-6, why="f32 sums in another order"))
+    for s in (2443, 77, 256, 2432):
+        xs = x[:, :s].contiguous()
+        ok &= check(f"attention_boundmax S={s}", run(xs),
+                    attention_reference(xs, HEADS, HEAD_DIM,
+                                        score_mode="boundmax"), tol)
+    ok &= torch.equal(run(x), run(x))
+    if ok:
+        x = qkv(8, 2443)
+        q, k, v = split_heads(x, HEADS, HEAD_DIM)
+        spread({"boundmax": lambda: run(x),
+                "f32max": lambda: fused_attention(x, HEADS, HEAD_DIM,
+                                                  score_mode="f32max"),
+                "library": lambda: F.scaled_dot_product_attention(q, k, v),
+                "key_norm": lambda: attention_key_norm(x, HEADS, HEAD_DIM)})
+    return ok
+
+
+def scan(gen) -> bool:
+    ok = True
+
+    def kernel(cols, starts):
+        return torch.stack(segmented_cumsum_cols(cols, starts))
+
+    for n, p in ((1, 0.5), (TILE - 1, 0.1), (TILE + 1, 0.1),
+                 (100_003, 0.2), (100_003, 0.0), (1_000_003, 1e-5)):
+        cols = tuple(torch.randn((n,), generator=gen, device="cuda")
+                     for _ in range(7))
+        starts = torch.rand((n,), generator=gen, device="cuda") < p
+        got = kernel(cols, starts)
+        ok &= check(f"segscan N={n} start share {p}", got,
+                    segmented_cumsum(torch.stack(cols, 1), starts).t(),
+                    SCAN_TOL)
+        ok &= torch.equal(got, kernel(cols, starts))
+    # the fused reduce against the unfused route: a full map of 2^20 and a
+    # batch twice its size
+    cap = 1 << 20
+    vm = offset_map_insert(create_offset_map(cap, 0.01),
+                           scattered_points(2 * cap, gen))
+    pts = scattered_points(2 * cap, gen)
+    cols = _insert_cols(vm, pts)
+    got = offset_map_insert(vm, pts)
+    want = _reduce_unfused(cols, cap, vm.voxel_size)
+    same = [bool(torch.equal(g, w)) for g, w in zip(got[:NCOLS],
+                                                     want[:NCOLS])]
+    print(f"offset_reduce cap {cap} rows {cols[0].shape[0]}: columns "
+          f"bit-equal {same}", flush=True)
+    ok &= all(same)
+    if ok:
+        skey, perm = _sort_keys(cols)
+        out = tuple(create_offset_map(cap, 0.01)[:NCOLS])
+        wcols = tuple(torch.randn((5_926_208,), generator=gen,
+                                  device="cuda") for _ in range(7))
+        starts = torch.rand((5_926_208,), generator=gen, device="cuda") < 0.6
+        spread({"reduce": lambda: offset_reduce(skey, perm, cols[2],
+                                                cols[3], out),
+                "unfused": lambda: _reduce_unfused(cols, cap, vm.voxel_size),
+                "sort": lambda: _sort_keys(cols),
+                "scan7": lambda: segmented_cumsum_cols(wcols, starts)})
     return ok
 
 
@@ -215,8 +304,10 @@ def tail(gen) -> bool:
     return ok
 
 
-MODES = {"attention": ("attention.cu", attention), "conv": ("conv3x3.cu", conv),
-         "int8": ("int8_linear.cu", int8), "tail": ("dpt_tail.cu", tail)}
+MODES = {"attention": ("attention.cu", attention),
+         "boundmax": ("attention.cu", boundmax), "conv": ("conv3x3.cu", conv),
+         "int8": ("int8_linear.cu", int8), "tail": ("dpt_tail.cu", tail),
+         "scan": ("segscan.cu", scan)}
 
 
 def main() -> int:

@@ -35,9 +35,10 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches made by its wrapper (see each ops module)
-launches: Dict[str, int] = {"attention": 0, "attention_bhsd": 0,
-                            "dpt_tail": 0, "segscan": 0, "int8_linear": 0,
-                            "conv3x3": 0}
+launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
+                            "attention_key_norm": 0, "attention_bhsd": 0,
+                            "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
+                            "int8_linear": 0, "conv3x3": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -161,9 +162,12 @@ def _declare(h: ctypes.CDLL) -> None:
                    ctypes.c_longlong)
     h.txr_cuda_error_string.argtypes = [i]
     h.txr_cuda_error_string.restype = ctypes.c_char_p
-    # (qkv, out, B, S, H, kv_len, scale, stream)
-    h.txr_attention_fwd.argtypes = [p, p, i, i, i, i, f, p]
+    # (qkv, out, B, S, H, kv_len, scale, key_norm or None, stream)
+    h.txr_attention_fwd.argtypes = [p, p, i, i, i, i, f, p, p]
     h.txr_attention_fwd.restype = i
+    # (qkv, kn, B, S, H, stream)
+    h.txr_attention_key_norm.argtypes = [p, p, i, i, i, p]
+    h.txr_attention_key_norm.restype = i
     # (out[4]: query rows per block, keys per tile, smem bytes, threads)
     h.txr_attention_geometry.argtypes = [ctypes.POINTER(i)]
     h.txr_attention_geometry.restype = None
@@ -197,11 +201,17 @@ def _declare(h: ctypes.CDLL) -> None:
     h.txr_dpt_tail_geometry.argtypes = [i, i, i, i, i, i, i,
                                         ctypes.POINTER(i)]
     h.txr_dpt_tail_geometry.restype = i
-    h.txr_segscan_tile.argtypes = []
-    h.txr_segscan_tile.restype = i
+    # (out[4]: rows per tile, threads, rows per thread, most columns)
+    h.txr_segscan_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_segscan_geometry.restype = None
     # (cols[], starts, out, n, ncols, fscratch, iscratch, stream)
     h.txr_segscan_fwd.argtypes = [ctypes.POINTER(p), p, p, ll, i, p, p, p]
     h.txr_segscan_fwd.restype = i
+    # (skey, perm, yzw, rgb, n, cap, khi, klo_x, yzw, rgb out, fscratch,
+    # iscratch, stream)
+    h.txr_offset_reduce_fwd.argtypes = [p, p, p, p, ll, i, p, p, p, p, p, p,
+                                        p]
+    h.txr_offset_reduce_fwd.restype = i
 
 
 def check(err: int, kernel: str) -> None:

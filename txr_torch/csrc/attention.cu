@@ -56,6 +56,18 @@
 // Arithmetic: scores in f32, exp2 with the scale folded into one fma, the
 // probabilities rounded to bf16 only as the A operand, one rounding of the
 // result.  No atomics: results repeat bit for bit.
+//
+// Score mode "boundmax" (txr/ops/attention.py:217-226, full keys only): the
+// softmax shift of a row is not its running max but the Cauchy-Schwarz bound
+// m = min(|q c| * max_k |k|, 60) with c = scale * log2(e), which is known
+// before the first key tile.  A small kernel in front (key_norm_kernel)
+// writes max_k |k| for every (batch, head); each consumer warpgroup scales
+// its 64 rows of q by c in shared memory, rounds them to bf16 as txr does,
+// and takes |q c| from the same pass.  Then p = 2^min(s - m, 60); the row
+// sum adds the f32 p and p v takes them rounded to bf16, as in f32max; the
+// running max, the two rescale exponentials and the accumulator rescale of
+// every step go.  It is the template flag BOUNDMAX; the f32max
+// instantiation is the code above, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,18 +101,76 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+constexpr int KN_THREADS = 1024;  // key-norm kernel: 128 key rows a pass
+constexpr int KN_UNROLL = 8;      // passes with their loads in flight together
+
+// kn[b * H + h] = max over the S keys of head h of |k| (f32 sums of the bf16
+// values), read from the (B, S, 3*H*D) projection.  One block per (head,
+// batch); eight threads share a key row of 128 bytes, one 16-byte load each.
+// Bound by bytes (B*S*H*D*2 read, once); the max is exact, so the result
+// repeats bit for bit.
+__global__ void __launch_bounds__(KN_THREADS)
+key_norm_kernel(const bf16* __restrict__ qkv, float* __restrict__ kn, int S,
+                int H) {
+  __shared__ float warp_max[KN_THREADS / 32];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int64_t ld = static_cast<int64_t>(3) * H * D;
+  const bf16* kbase = qkv + static_cast<int64_t>(b) * S * ld + (H + h) * D;
+  const int part = threadIdx.x & 7;
+  const int r0 = threadIdx.x >> 3;
+  float best = 0.f;
+  constexpr int ROWS = KN_THREADS / 8;
+  for (int s0 = 0; s0 < S; s0 += ROWS * KN_UNROLL) {
+    uint4 x[KN_UNROLL];
+#pragma unroll
+    for (int u = 0; u < KN_UNROLL; ++u) {
+      const int s = s0 + u * ROWS + r0;
+      x[u] = s < S ? __ldg(reinterpret_cast<const uint4*>(kbase + s * ld) +
+                           part)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < KN_UNROLL; ++u) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[u]);
+      float acc = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        acc = fmaf(f.x, f.x, acc);
+        acc = fmaf(f.y, f.y, acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      best = fmaxf(best, acc);
+    }
+  }
+#pragma unroll
+  for (int o = 8; o < 32; o <<= 1)
+    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < KN_THREADS / 32; ++w) best = fmaxf(best, warp_max[w]);
+    kn[b * H + h] = sqrtf(best);
+  }
+}
+
 // Element strides of the output: batch, head, row (of D contiguous values).
 struct Strides {
   int64_t b, h, r;
 };
 
+template <bool BOUNDMAX>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      bf16* __restrict__ out, Strides so, int head_q,
                      int head_k, int head_v, int S, int kv_len,
-                     float scale_log2e) {
+                     float scale_log2e, const float* __restrict__ key_norm) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -168,6 +238,48 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
     const uint64_t q_desc = wgmma_desc_sw128(sQ + wg * (64 * D * 2));
     mbar_wait(bar_q, 0);
+    if constexpr (BOUNDMAX) {
+      // Rows g and g + 8 of this warp's 16: the four threads of a row take
+      // 32 of its 128 bytes each (the swizzle moves 16-byte pieces only
+      // within a row, and every value of the row is treated alike).
+      const float kn = key_norm[b * gridDim.y + h];
+      float ss[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint4* piece = reinterpret_cast<uint4*>(
+            sQ + wg * (64 * D * 2) + (warp * 16 + g + 8 * r) * (D * 2) +
+            t * 32);
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint4 x = piece[c];
+          uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+            const float lo = f.x * scale_log2e;
+            const float hi = f.y * scale_log2e;
+            acc = fmaf(lo, lo, acc);
+            acc = fmaf(hi, hi, acc);
+            w[e] = pack_bf16(lo, hi);
+          }
+          piece[c] = x;
+        }
+        ss[r] = acc;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], 1);
+        ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], 2);
+      }
+      m0 = fminf(sqrtf(ss[0]) * kn, 60.f);
+      m1 = fminf(sqrtf(ss[1]) * kn, 60.f);
+      // the rewritten q is read by wgmma (the async proxy), by all four
+      // warps of the warpgroup
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
 
     // Software pipeline over the key tiles: step j starts the scores of
     // tile j and, right behind them, p v of tile j - 1, and runs the
@@ -186,6 +298,22 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         if (MASK && key0 + ni * 8 + (c & 1) >= kv_len) return NEG_BIG;
         return s[4 * ni + c];
       };
+      if constexpr (BOUNDMAX) {
+        // scores are in the exp2 domain already (q carries c); m is fixed
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 16; ++ni) {
+          s[4 * ni] = exp2f(fminf(score(ni, 0) - m0, 60.f));
+          s[4 * ni + 1] = exp2f(fminf(score(ni, 1) - m0, 60.f));
+          s[4 * ni + 2] = exp2f(fminf(score(ni, 2) - m1, 60.f));
+          s[4 * ni + 3] = exp2f(fminf(score(ni, 3) - m1, 60.f));
+          rs0 += s[4 * ni] + s[4 * ni + 1];
+          rs1 += s[4 * ni + 2] + s[4 * ni + 3];
+        }
+        l0 += rs0;
+        l1 += rs1;
+        return;
+      }
       float mx0 = NEG_BIG, mx1 = NEG_BIG;
 #pragma unroll
       for (int ni = 0; ni < 16; ++ni) {
@@ -280,12 +408,14 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();  // p v of the previous tile is done
       fence_pv_operands();
       if (lane == 0) mbar_arrive(empty + st_prev);
+      if constexpr (!BOUNDMAX) {
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        o[4 * ni] *= alpha0;
-        o[4 * ni + 1] *= alpha0;
-        o[4 * ni + 2] *= alpha1;
-        o[4 * ni + 3] *= alpha1;
+        for (int ni = 0; ni < 8; ++ni) {
+          o[4 * ni] *= alpha0;
+          o[4 * ni + 1] *= alpha0;
+          o[4 * ni + 2] *= alpha1;
+          o[4 * ni + 3] *= alpha1;
+        }
       }
       pack();
     }
@@ -337,19 +467,21 @@ int make_map(CUtensorMap* map, const void* ptr, int S, int heads, int B,
   return encode_bf16_map(map, ptr, 4, dims, strides, box);
 }
 
+template <bool BOUNDMAX>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
            bf16* out, Strides so, int head_q, int head_k, int head_v, int B,
-           int S, int H, int kv_len, float scale, void* stream) {
+           int S, int H, int kv_len, float scale, const float* key_norm,
+           void* stream) {
   // per launch: the attribute belongs to the current device's context
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      attention_fwd_kernel<BOUNDMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + BM - 1) / BM, H, B);
-  attention_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
+  attention_fwd_kernel<BOUNDMAX><<<grid, NTHREADS, SMEM_BYTES,
+                                   static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, out, so, head_q, head_k, head_v, S, kv_len,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, key_norm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,19 +497,39 @@ extern "C" void txr_attention_geometry(int* out4) {
 }
 
 
+// qkv: (B, S, 3*H*64) bf16 contiguous, 16-byte aligned; kn: (B, H) f32.
+// Writes the largest key norm of every (batch, head), for score mode
+// boundmax.  Returns a cudaError_t (0 on success).
+extern "C" int txr_attention_key_norm(const void* qkv, void* kn, int B, int S,
+                                      int H, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  key_norm_kernel<<<dim3(H, B), KN_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<float*>(kn), S, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // qkv: (B, S, 3*H*64) bf16 contiguous, 16-byte aligned; out: (B, S, H*64).
-// 1 <= kv_len <= S.  Returns a cudaError_t (0 on success).
+// 1 <= kv_len <= S.  key_norm: null for score mode f32max, or the (B, H)
+// output of txr_attention_key_norm for boundmax, which needs kv_len == S.
+// Returns a cudaError_t (0 on success).
 extern "C" int txr_attention_fwd(const void* qkv, void* out, int B, int S,
                                  int H, int kv_len, float scale,
-                                 void* stream) {
+                                 const void* key_norm, void* stream) {
   const int64_t ld = static_cast<int64_t>(3) * H * D;
   CUtensorMap map;  // q, k and v are head ranges of one map
   const int rc = make_map(&map, qkv, S, 3 * H, B, ld, D, S * ld);
   if (rc != 0) return rc;
   const Strides so = {static_cast<int64_t>(S) * H * D, D,
                       static_cast<int64_t>(H) * D};
-  return launch(map, map, map, static_cast<bf16*>(out), so, 0, H, 2 * H, B, S,
-                H, kv_len, scale, stream);
+  if (key_norm == nullptr)
+    return launch<false>(map, map, map, static_cast<bf16*>(out), so, 0, H,
+                         2 * H, B, S, H, kv_len, scale, nullptr, stream);
+  if (kv_len != S) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(map, map, map, static_cast<bf16*>(out), so, 0, H, 2 * H,
+                      B, S, H, kv_len, scale,
+                      static_cast<const float*>(key_norm), stream);
 }
 
 // q, k, v, out: (B, H, S, 64) bf16 views.  strides: twelve element strides,
@@ -397,6 +549,6 @@ extern "C" int txr_attention_bhsd_fwd(const void* q, const void* k,
     if (rc != 0) return rc;
   }
   const Strides so = {strides[9], strides[10], strides[11]};
-  return launch(maps[0], maps[1], maps[2], static_cast<bf16*>(out), so, 0, 0,
-                0, B, S, H, kv_len, scale, stream);
+  return launch<false>(maps[0], maps[1], maps[2], static_cast<bf16*>(out), so,
+                       0, 0, 0, B, S, H, kv_len, scale, nullptr, stream);
 }

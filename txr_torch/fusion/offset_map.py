@@ -18,7 +18,11 @@ not drift across inserts.
 The insert concatenates the map's rows with the batch's, sorts, reduces
 each voxel segment with the SEGMENTED scan (``txr_torch/ops/scan.py``), so
 rounding scales with a segment's own sum and not with the map's total
-weight, and compacts the segment ends to the front.
+weight, and compacts the segment ends to the front. On the CPU the reduce
+after the sort is plain PyTorch (``_reduce_unfused``: gathers, the scan's
+plain version, ``torch.nonzero`` compaction). On the card it is one kernel
+(``txr_torch.ops.scan.offset_reduce``) that unpacks the contributions, scans
+them and writes each voxel at its rank, with no host sync.
 
 Bit fields are assembled in int64 and narrowed to int32 at the end (see
 ``txr_torch/fusion/keys.py``); the two sort keys travel as one int64 key
@@ -35,7 +39,7 @@ import torch
 from txr_torch.core.device import resolve_device
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.keys import pack_keys, unpack_keys
-from txr_torch.ops.scan import segmented_cumsum_cols
+from txr_torch.ops.scan import offset_reduce, segmented_cumsum_cols
 from txr_torch.ops.segment import INT_MAX
 
 _BIAS = 1 << 31
@@ -181,6 +185,13 @@ def offset_map_merge(a: OffsetVoxelMap, b: OffsetVoxelMap) -> OffsetVoxelMap:
     return _reduce_packed(cols, a.khi.shape[0], a.voxel_size)
 
 
+def _sort_keys(cols):
+    """One stable sort on the fused (khi, klo_x) int64 key: the sorted key
+    and its permutation; the payload follows by gather."""
+    key = (cols[0].long() << 32) | (cols[1].long() + _BIAS)
+    return torch.sort(key, stable=True)
+
+
 def _sorted_contributions(cols):
     """Sort the packed rows by voxel key and unpack what the reduce sums.
 
@@ -190,10 +201,8 @@ def _sorted_contributions(cols):
     """
     n = cols[0].shape[0]
     dev = cols[0].device
-    # One stable sort on the fused (khi, klo_x) key; the payload follows by
-    # gather. Both keys come back out of the sorted key itself.
-    key = (cols[0].long() << 32) | (cols[1].long() + _BIAS)
-    skey, perm = torch.sort(key, stable=True)
+    # Both keys come back out of the sorted key itself.
+    skey, perm = _sort_keys(cols)
     skhi = skey >> 32                     # int64, sign kept
     u = skey & _MASK32                    # klo_x with its sign xor undone
     sklo, u_x = u >> 10, u & 0x3FF
@@ -221,6 +230,19 @@ def _sorted_contributions(cols):
 
 
 def _reduce_packed(cols, cap: int, voxel_size) -> OffsetVoxelMap:
+    """Sort the packed rows and reduce each voxel segment to one map row:
+    the plain version on the CPU, the fused kernel on the card."""
+    if cols[0].device.type == "cpu":
+        return _reduce_unfused(cols, cap, voxel_size)
+    skey, perm = _sort_keys(cols)
+    out = _empty_map(cap, voxel_size)
+    offset_reduce(skey, perm, cols[2], cols[3], out[:NCOLS])
+    return out
+
+
+def _reduce_unfused(cols, cap: int, voxel_size) -> OffsetVoxelMap:
+    """The reduce as separate PyTorch operations (and, for a CUDA tensor,
+    the standalone scan kernel): the plain version of the fused kernel."""
     skhi, sklo, wcols, last, starts = _sorted_contributions(cols)
 
     # The value at a segment's END row is exactly that segment's total.

@@ -25,6 +25,15 @@ so head ``h`` has q, k, v at columns ``h*D``, ``H*D + h*D`` and
 statistics are f32, the probabilities are rounded to v's dtype before the PV
 product, accumulation is f32.
 
+Score modes of the full-key route (``kv_len`` None or S), as ``txr``'s
+``_fused_kernel_1pass``: ``"f32max"`` shifts each row by its max;
+``"boundmax"`` by the Cauchy-Schwarz bound ``min(|q c| max_k |k|, 60)``
+with ``c = scale * log2(e)``, q pre-scaled by c and rounded to the operand
+dtype, ``p = 2^min(s - m, 60)`` (see :func:`attention_boundmax_plain`). A
+mode of ``None`` is read from ``TXR_ATTN_SCORES`` (default ``"f32max"``) at
+every call. ``kv_len < S`` and :func:`attention_flash` have no score mode,
+as in ``txr``: they compute ``f32max``.
+
 ``fused_attention`` and ``attention_flash`` take the plain version only for
 a tensor that lies on the CPU. For a CUDA tensor they launch the kernel or
 raise. Their gradients differentiate the plain versions, as ``txr``'s custom
@@ -35,6 +44,7 @@ VJPs do. ``multi_head_attention`` dispatches as ``txr``'s does:
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -50,6 +60,23 @@ BLOCK_K = 128        # keys per tile
 STAGES = 3           # K/V tiles in flight
 HEAD_DIM = 64
 MAX_SMEM_BYTES = 232448      # what one block may use on an H100
+SCORE_MODES = ("f32max", "boundmax")
+_LOG2E = 1.4426950408889634
+
+
+def default_score_mode() -> str:
+    """``TXR_ATTN_SCORES`` (default ``"f32max"``), read at each call as
+    ``txr.ops.attention.default_score_mode`` is."""
+    return os.environ.get("TXR_ATTN_SCORES", "f32max")
+
+
+def resolve_score_mode(score_mode: Optional[str]) -> str:
+    """``None`` -> the environment's mode; an unknown mode raises."""
+    mode = score_mode or default_score_mode()
+    if mode not in SCORE_MODES:
+        raise ValueError(f"unknown score_mode {mode!r}; expected one of "
+                         f"{SCORE_MODES}")
+    return mode
 
 
 def kernel_geometry(batch: int, heads: int, s: int, kv_len: int) -> dict:
@@ -112,6 +139,39 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
+def key_norm_plain(k: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) keys -> (B, H) f32: the largest key norm of each
+    head, ``sqrt(max_k sum_d k^2)`` in f32 as ``txr``'s kernel takes it."""
+    kf = k.float()
+    return (kf * kf).sum(-1).amax(-1).sqrt()
+
+
+def attention_boundmax_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """Score mode ``"boundmax"`` of ``txr``'s ``_fused_kernel_1pass``
+    (``txr/ops/attention.py:217-226``) on (B, H, S, D) operands, all keys.
+
+    The shift of a row is a bound on its scaled logits, not their max, so
+    no pass over the scores finds it: ``m = min(|q c| * max_k |k|, 60)``
+    with ``c = D^-0.5 * log2(e)``, the scores ``s = round(q c) . k`` in f32
+    (q rounded to its dtype after scaling), ``p = 2^min(s - m, 60)``. As in
+    ``"f32max"``, the normaliser is the f32 sum of p and the product with v
+    takes p rounded to v's dtype (``txr`` sums the rounded p; the two
+    normalisers differ by about 2^-9 / sqrt(S) of their value). Softmax is
+    shift-invariant, so this is softmax wherever the logits stay within
+    about 83 nats of the bound; beyond, p saturates at 2^60 and the result
+    stays finite."""
+    c = q.shape[-1] ** -0.5 * _LOG2E
+    qf = q.float() * c
+    s = torch.matmul(qf.to(q.dtype).float(), k.float().transpose(-1, -2))
+    qn = (qf * qf).sum(-1, keepdim=True).sqrt()
+    m = torch.clamp(qn * key_norm_plain(k)[..., None, None], max=60.0)
+    p = torch.exp2(torch.clamp(s - m, max=60.0))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
 def split_heads(qkv: torch.Tensor, num_heads: int, head_dim: int):
     """(B, S, 3*H*D) component-major -> q, k, v views of shape (B, H, S, D)
     (no copy: each is a strided slice of ``qkv``)."""
@@ -121,19 +181,43 @@ def split_heads(qkv: torch.Tensor, num_heads: int, head_dim: int):
 
 
 def attention_reference(qkv: torch.Tensor, num_heads: int, head_dim: int,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version with the fused kernel's exact contract."""
+                        kv_len: Optional[int] = None,
+                        score_mode: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch version with the fused kernel's exact contract,
+    score mode included (``None``: ``TXR_ATTN_SCORES``)."""
     b, s, c = qkv.shape
     h, d = num_heads, head_dim
     if c != 3 * h * d:
         raise ValueError(f"qkv has {c} columns, expected 3*{h}*{d}")
-    o = attention_plain(*split_heads(qkv, h, d), kv_len)
+    mode = resolve_score_mode(score_mode)
+    if mode == "boundmax" and (kv_len is None or kv_len == s):
+        o = attention_boundmax_plain(*split_heads(qkv, h, d))
+    else:
+        o = attention_plain(*split_heads(qkv, h, d), kv_len)
     return o.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _launch(qkv: torch.Tensor, num_heads: int, head_dim: int,
-            kv_len: int) -> torch.Tensor:
-    b, s, c = qkv.shape
+def attention_key_norm(qkv: torch.Tensor, num_heads: int,
+                       head_dim: int) -> torch.Tensor:
+    """(B, S, 3*H*D) -> (B, H) f32: the largest key norm of each head,
+    which score mode ``"boundmax"`` bounds its logits with. The kernel on a
+    CUDA tensor, :func:`key_norm_plain` on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return key_norm_plain(split_heads(qkv, num_heads, head_dim)[1])
+    b, s, _ = qkv.shape
+    _check_kernel_qkv(qkv, num_heads, head_dim)
+    kn = torch.empty((b, num_heads), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _cuda.lib().txr_attention_key_norm(
+            qkv.data_ptr(), kn.data_ptr(), b, s, num_heads,
+            torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, "attention_key_norm")
+    _cuda.launches["attention_key_norm"] += 1
+    return kn
+
+
+def _check_kernel_qkv(qkv: torch.Tensor, num_heads: int,
+                      head_dim: int) -> None:
     if qkv.dtype != torch.bfloat16:
         raise TypeError(
             f"the attention kernel takes bfloat16, got {qkv.dtype}")
@@ -143,16 +227,26 @@ def _launch(qkv: torch.Tensor, num_heads: int, head_dim: int,
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(
             "the attention kernel needs a contiguous, 16-byte aligned qkv")
-    if b > 65535 or num_heads > 65535:
+    if qkv.shape[0] > 65535 or num_heads > 65535:
         raise ValueError("batch and head count must each be below 65536")
+
+
+def _launch(qkv: torch.Tensor, num_heads: int, head_dim: int,
+            kv_len: int, mode: str) -> torch.Tensor:
+    b, s, c = qkv.shape
+    _check_kernel_qkv(qkv, num_heads, head_dim)
+    kn = (attention_key_norm(qkv, num_heads, head_dim)
+          if mode == "boundmax" else None)
     out = torch.empty((b, s, num_heads * head_dim), dtype=qkv.dtype,
                       device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _cuda.lib().txr_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), b, s, num_heads, kv_len,
-            head_dim ** -0.5, torch.cuda.current_stream().cuda_stream)
-    _cuda.check(err, "attention")
-    _cuda.launches["attention"] += 1
+            head_dim ** -0.5, None if kn is None else kn.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    name = "attention_boundmax" if mode == "boundmax" else "attention"
+    _cuda.check(err, name)
+    _cuda.launches[name] += 1
     return out
 
 
@@ -161,29 +255,34 @@ class _FusedAttention(torch.autograd.Function):
     has no backward kernel either)."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, head_dim, kv_len):
+    def forward(ctx, qkv, num_heads, head_dim, kv_len, mode):
         ctx.save_for_backward(qkv)
         ctx.args = (num_heads, head_dim, kv_len)
         if qkv.device.type == "cpu":
-            return attention_reference(qkv, num_heads, head_dim, kv_len)
+            return attention_reference(qkv, num_heads, head_dim, kv_len,
+                                       mode)
         return _launch(qkv, num_heads, head_dim,
-                       qkv.shape[1] if kv_len is None else kv_len)
+                       qkv.shape[1] if kv_len is None else kv_len, mode)
 
     @staticmethod
     def backward(ctx, grad):
+        # the f32max reference in every mode, as txr's custom VJP
         (qkv,) = ctx.saved_tensors
         with torch.enable_grad():
             x = qkv.detach().requires_grad_(True)
-            y = attention_reference(x, *ctx.args)
+            y = attention_reference(x, *ctx.args, score_mode="f32max")
             (gx,) = torch.autograd.grad(y, x, grad)
-        return gx, None, None, None
+        return gx, None, None, None, None
 
 
 def fused_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[int] = None,
+                    score_mode: Optional[str] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v on (B, S, 3*H*D) -> (B, S, H*D).
 
     Keys at positions >= ``kv_len`` are ignored (``None``: all S keys).
+    ``score_mode`` (``None``: ``TXR_ATTN_SCORES`` now) chooses the softmax
+    shift of the full-key route; with ``kv_len < S`` it has no effect.
     """
     if qkv.dim() != 3 or qkv.shape[2] != 3 * num_heads * head_dim:
         raise ValueError(
@@ -191,7 +290,10 @@ def fused_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
             f"{tuple(qkv.shape)}")
     if kv_len is not None and not 1 <= kv_len <= qkv.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside [1, {qkv.shape[1]}]")
-    return _FusedAttention.apply(qkv, num_heads, head_dim, kv_len)
+    mode = resolve_score_mode(score_mode)
+    if kv_len is not None and kv_len < qkv.shape[1]:
+        mode = "f32max"
+    return _FusedAttention.apply(qkv, num_heads, head_dim, kv_len, mode)
 
 
 def _check_bhsd(q, k, v, kv_len) -> None:
