@@ -36,15 +36,23 @@ and fused-reduce kernels); ``quant_path`` with ``quant="int8p"`` and
 ``boundmax_path`` with ``TXR_ATTN_SCORES=boundmax`` (the bound-shift
 attention kernel and its key-norm pre-pass instead of the f32max kernel);
 ``odd_heads_path`` runs a two-block ViT encoder of 15 heads on the same
-2443-token sequence (the (B, H, S, D) attention entry point).
+2443-token sequence (the (B, H, S, D) attention entry point);
+``depth_cli_path`` runs the depth CLI's pipeline as
+``depth_processor_torch.py`` builds it (Depth Anything V2 ViT-L, bf16,
+``DepthProcessor`` in point-cloud mode at batch 8) over 12 seeded 1080p
+frames, with the native host library built from ``txr_torch/_native``: a
+PLY per frame at the source resolution, read back and held against the
+back-projection of ``infer_batch``, the batch-1 loop against the batched
+one, and the ``--int8`` policy over 8 frames.
 
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
-``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``, then
-the ``kernels`` summary and, last, the verdict ``{"ok": true, "device":
-{...}}``. Any failing phase raises and the exit code is non-zero; nothing
-runs on the CPU and no kernel is swapped for its plain version. Without a
-CUDA device the script exits with code 2 and prints no result.
+``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
+``depth_cli_path``, then the ``kernels`` summary and, last, the verdict
+``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
+code is non-zero; nothing runs on the CPU and no kernel is swapped for its
+plain version. Without a CUDA device the script exits with code 2 and
+prints no result.
 
 Options (none is needed): ``--frames N`` frames per step (default 8);
 ``--profile`` builds with ``-Xptxas -v`` and adds a ``ptxas`` line (each
@@ -63,9 +71,11 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -74,6 +84,8 @@ import torch
 import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
+import txr_torch._native as native
+from txr_torch.core.intrinsics import CameraIntrinsics
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
                                          _reduce_unfused, _sort_keys,
@@ -81,7 +93,10 @@ from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
                                          offset_map_merge,
                                          offset_map_scan_inputs,
                                          offset_map_size)
-from txr_torch.models.depth_anything import DepthAnything, build_model
+from txr_torch.io.ply import read_ply
+from txr_torch.io.sources import ImageSource
+from txr_torch.models.depth_anything import (DepthAnything,
+                                             DepthAnythingModel, build_model)
 from txr_torch.models.dpt import DPTConfig
 from txr_torch.models.vit import ViTConfig
 from txr_torch.ops.attention import BLOCK_K as ATTN_BLOCK_K
@@ -91,7 +106,7 @@ from txr_torch.ops.attention import (attention_flash, attention_key_norm,
                                      fused_attention, key_norm_plain,
                                      split_heads)
 from txr_torch.ops.attention import kernel_geometry as attention_geometry
-from txr_torch.ops.backproject import backproject_world
+from txr_torch.ops.backproject import backproject, backproject_world
 from txr_torch.ops.conv_stripe import (BLOCK_F, TILE_H, TILE_W,
                                        conv3x3_reference, conv3x3_stripe,
                                        pack_weight)
@@ -113,6 +128,7 @@ from txr_torch.ops.scan import TILE as SCAN_TILE
 from txr_torch.ops.scan import (offset_reduce, scan_geometry,
                                 segmented_cumsum_cols)
 from txr_torch.ops.segment import segmented_cumsum
+from txr_torch.pipelines.depth_pipeline import DepthProcessor
 
 # Published dense peaks of one H100 SXM, used for the bounds.
 PEAK_BF16_FLOPS = 989e12
@@ -124,6 +140,7 @@ H, W = 1080, 1920
 HEADS, HEAD_DIM = 16, 64
 ODD_HEADS = 15                  # head count of the odd-heads path
 STEPS = 2                       # timed steps of a path
+CLI_FRAMES = 12                 # depth_cli_path: a batch of 8, then of 4
 
 
 def emit(obj) -> None:
@@ -1432,6 +1449,259 @@ def odd_heads_path(frames: int, gen: torch.Generator) -> dict:
     return out
 
 
+class SeededFrames(ImageSource):
+    """Seeded BGR frames as a frame source of the depth pipeline (the
+    folder source needs image files, and so an encoder the card's machine
+    need not have)."""
+
+    def __init__(self, frames: np.ndarray):
+        self.frames = frames
+        self.index = 0
+        self.intrinsics = CameraIntrinsics.default(W, H)
+
+    def __next__(self):
+        if self.index >= len(self.frames):
+            raise StopIteration
+        self.index += 1
+        i = self.index - 1
+        return self.frames[i], float(i), f"frame_{i:04d}"
+
+
+def run_processor(model, frames: np.ndarray, out_dir: str,
+                  batch_size: int) -> dict:
+    """``DepthProcessor`` in point-cloud mode over ``frames``, as
+    ``depth_processor_torch.py``'s ``main()`` builds it, with the stages of
+    each batch timed: the device part between CUDA events (upload,
+    preprocess, model, upsample, back-projection; synchronised at its end),
+    and on the host clock the copies to the host, each PLY write, and the
+    host work between them (stacking a batch's frames, each frame's mask
+    compaction)."""
+    proc = DepthProcessor(model, SeededFrames(frames), out_dir,
+                          mode="pointcloud", batch_size=batch_size)
+    times = {"device_ms": [], "copy_ms": [], "ply_ms": [], "peak_bytes": []}
+    spans = []                                  # (stage, host start, end)
+    device_batch, to_host = proc._device_batch, proc._to_host
+    save = proc._save_pointcloud
+
+    def timed_device(images):
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = device_batch(images)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(("device_ms", t0, time.perf_counter()))
+        times["device_ms"].append(start.elapsed_time(end))
+        times["peak_bytes"].append(torch.cuda.max_memory_allocated())
+        return out
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            t1 = time.perf_counter()
+            spans.append((name, t0, t1))
+            times[name].append((t1 - t0) * 1e3)
+            return out
+        return call
+
+    proc._device_batch = timed_device
+    proc._to_host = timed("copy_ms", to_host)
+    proc._save_pointcloud = timed("ply_ms", save)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    processed = proc.process()
+    wall = time.perf_counter() - t0
+    # the host work between the timed stages: before a PLY write, that
+    # frame's mask compaction (numpy); before a device batch, gathering and
+    # stacking its frames
+    gaps = {"ply_ms": [], "device_ms": []}
+    prev = t0
+    for name, a, b in spans:
+        if name in gaps:
+            gaps[name].append((a - prev) * 1e3)
+        prev = b
+    times.update(processed=processed, wall_s=wall,
+                 compaction_ms=gaps["ply_ms"], stack_ms=gaps["device_ms"],
+                 launches=dict(kernels.launches))
+    return times
+
+
+def ply_pixels(path: str, intr: CameraIntrinsics) -> tuple:
+    """A PLY's points with the flat index of the pixel each came from
+    (recovered from x / z and y / z)."""
+    xyz, rgb = read_ply(path)
+    u = np.rint(xyz[:, 0] / xyz[:, 2] * intr.fx + intr.cx).astype(np.int64)
+    v = np.rint(xyz[:, 1] / xyz[:, 2] * intr.fy + intr.cy).astype(np.int64)
+    return v * W + u, xyz, rgb
+
+
+def depth_share(diff: np.ndarray, span: float) -> dict:
+    """Median and largest absolute depth difference as shares of a span."""
+    d = np.abs(diff.astype(np.float64)) / span
+    return {"median_share_of_span": float(np.median(d)),
+            "max_share_of_span": float(d.max()), "depth_span": span}
+
+
+SEQ_LIMIT = dict(median=0.01, max=0.10,
+                 why="the batch-1 and the batched run differ only in the "
+                     "order of f32 sums inside bf16 layers (cuBLAS picks "
+                     "other algorithms at M = 2443 than at 8 x 2443); a "
+                     "perturbation of that kind (boundmax against f32max, "
+                     "PERF.md) moved the depth by 0.21 % / 2.1 % of its span")
+PLY_TOL = dict(rtol=1e-6, atol=1e-6,
+               why="the same depth bits back-projected on the card and on "
+                   "the CPU: the card divides by a Python number as a "
+                   "multiply by its rounded reciprocal, so x and y differ by "
+                   "up to 2 f32 roundings (2.4e-7 relative)")
+
+
+def depth_cli_path() -> dict:
+    """The depth CLI's pipeline on the card, as ``depth_processor_torch.py``
+    runs it with its defaults (``DepthAnythingModel("v2", "vitl")``, bf16,
+    seeded weights; ``DepthProcessor`` at batch 8) but in point-cloud mode
+    (the colormap needs OpenCV) over 12 seeded 1080p frames: one batch of 8
+    and one of 4, a PLY per frame at the source resolution (2,073,600
+    pixels) written by the native library. Output goes to a temporary
+    directory, removed afterwards."""
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("the native host library did not build")
+    frames = np.random.default_rng(0).integers(
+        0, 256, (CLI_FRAMES, H, W, 3), dtype=np.uint8)
+    intr = CameraIntrinsics.default(W, H)
+    model = DepthAnythingModel("v2", "vitl")
+    out_dir = tempfile.mkdtemp(prefix="depth_cli_path.")
+    try:
+        # 1, 3: the run itself and its launches
+        run = run_processor(model, frames, os.path.join(out_dir, "batched"),
+                            batch_size=8)
+        counts = run["launches"]
+        expect = {"attention": 24 * 2, "dpt_tail": 2}
+        wrong = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"depth_cli_path launched {counts}, "
+                                 f"expected {expect}")
+        plys = sorted(os.listdir(os.path.join(out_dir, "batched",
+                                              "pointclouds")))
+        if run["processed"] != CLI_FRAMES or plys != [
+                f"frame_{i:04d}.ply" for i in range(CLI_FRAMES)]:
+            raise AssertionError(f"processed {run['processed']} frames, "
+                                 f"wrote {plys}")
+
+        # 2: each PLY against the masked back-projection of infer_batch
+        ref = np.concatenate([model.infer_batch(frames[:8], intr),
+                              model.infer_batch(frames[8:], intr)])
+        points, ply_bytes, max_err = [], [], 0.0
+        for i in range(CLI_FRAMES):
+            path = os.path.join(out_dir, "batched", "pointclouds", plys[i])
+            ply_bytes.append(os.path.getsize(path))
+            xyz, rgb = read_ply(path)
+            want = backproject(torch.from_numpy(ref[i]),
+                               torch.from_numpy(frames[i, ..., ::-1].copy()),
+                               intr.fx, intr.fy, intr.cx, intr.cy, 0.1, 100.0,
+                               1.0, 1).to_numpy()
+            if xyz.shape != want[0].shape:
+                raise AssertionError(f"frame {i}: {len(xyz)} points in the "
+                                     f"PLY, {len(want[0])} in the "
+                                     "back-projection of infer_batch")
+            err = np.abs(xyz - want[0])
+            if (err > PLY_TOL["atol"] + PLY_TOL["rtol"]
+                    * np.abs(want[0])).any():
+                raise AssertionError(f"frame {i}: PLY positions differ by "
+                                     f"{err.max()}")
+            if not np.array_equal(np.rint(rgb * 255),
+                                  np.rint(want[1] * 255)):
+                raise AssertionError(f"frame {i}: PLY colours differ")
+            points.append(len(xyz))
+            max_err = max(max_err, float(err.max()) if len(err) else 0.0)
+        if not 0 < min(points):
+            raise AssertionError(f"points per frame {points}")
+
+        # 4: batch 1 against the batched run, first two frames
+        seq = run_processor(model, frames[:2], os.path.join(out_dir, "seq"),
+                            batch_size=1)
+        span = float(ref[:2].max() - ref[:2].min())
+        diffs, one_side = [], 0
+        for name in plys[:2]:
+            gp, gx, _ = ply_pixels(os.path.join(out_dir, "seq",
+                                                "pointclouds", name), intr)
+            wp, wx, _ = ply_pixels(os.path.join(out_dir, "batched",
+                                                "pointclouds", name), intr)
+            common, gi, wi = np.intersect1d(gp, wp, return_indices=True)
+            dz = np.abs(gx[gi, 2] - wx[wi, 2])
+            diffs.append(dz)
+            only = np.concatenate([gx[~np.isin(gp, wp), 2],
+                                   wx[~np.isin(wp, gp), 2]])
+            # a point on one side only crossed min_depth between the runs
+            if (np.abs(only - 0.1) > SEQ_LIMIT["max"] * span).any():
+                raise AssertionError(f"{name}: points kept by one run only, "
+                                     "away from min_depth")
+            one_side += len(only)
+        dz = np.concatenate(diffs)
+        seq_share = depth_share(dz, span)
+        seq_share.update(points_on_one_side_only=one_side,
+                         points_compared=len(dz), limit=SEQ_LIMIT)
+        if (seq_share["median_share_of_span"] > SEQ_LIMIT["median"]
+                or seq_share["max_share_of_span"] > SEQ_LIMIT["max"]):
+            raise AssertionError(f"batch 1 against batch 8: {seq_share}")
+
+        # 5: the --int8 policy over 8 frames
+        del model
+        torch.cuda.empty_cache()
+        q_model = DepthAnythingModel("v2", "vitl", quant="int8")
+        q_run = run_processor(q_model, frames[:8],
+                              os.path.join(out_dir, "int8"), batch_size=8)
+        q_depth = q_model.infer_batch(frames[:8], intr)
+        if not np.isfinite(q_depth).all() or q_depth.max() <= q_depth.min():
+            raise AssertionError("int8 depth is not finite or is constant")
+        q_share = depth_share(q_depth - ref[:8],
+                              float(ref[:8].max() - ref[:8].min()))
+        del q_model
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    batches = []
+    sizes = [8, CLI_FRAMES - 8]
+    for b, n in enumerate(sizes):
+        first = sum(sizes[:b])
+        batches.append({"frames": n, "stack_ms": run["stack_ms"][b],
+                        "device_ms": run["device_ms"][b],
+                        "peak_memory_bytes": run["peak_bytes"][b],
+                        "copy_ms": run["copy_ms"][b],
+                        "compaction_ms_per_frame": statistics.mean(
+                            run["compaction_ms"][first:first + n]),
+                        "ply_write_ms_per_frame": statistics.mean(
+                            run["ply_ms"][first:first + n])})
+    staged = sum(sum(run[k]) for k in ("stack_ms", "device_ms", "copy_ms",
+                                       "compaction_ms", "ply_ms"))
+    out = {"phase": "depth_cli_path", "model": "v2/vitl", "dtype": "bfloat16",
+           "mode": "pointcloud", "input": [H, W], "frames": CLI_FRAMES,
+           "batch_size": 8, "wall_s": run["wall_s"],
+           "frames_per_second": CLI_FRAMES / run["wall_s"],
+           "per_batch": batches,
+           "other_host_ms": run["wall_s"] * 1e3 - staged,
+           "peak_memory_bytes": max(run["peak_bytes"]),
+           "pixels_per_frame": H * W, "points_per_frame": points,
+           "ply_bytes_per_frame": statistics.mean(ply_bytes),
+           "native_codecs": native.codecs(),
+           "ply_vs_infer_batch": {"max_abs_err_m": max_err,
+                                  "points_equal": True, "tolerance": PLY_TOL},
+           "sequential_vs_batched": seq_share,
+           "sequential_frames_per_second": 2 / seq["wall_s"],
+           "int8": {"frames": 8, "depth_vs_bf16": q_share,
+                    "frames_per_second": 8 / q_run["wall_s"],
+                    "device_ms": q_run["device_ms"],
+                    "launches": q_run["launches"]},
+           "launches": counts, "launches_over_steps": 2, "ok": True}
+    emit(out)
+    return out
+
+
 def profile_step(phase: str, run_step) -> None:
     """One step under ``torch.profiler``; emit the device time by kernel."""
     from torch.autograd import DeviceType
@@ -1609,8 +1879,10 @@ def main() -> int:
     del main_depth
     torch.cuda.empty_cache()
     orun = odd_heads_path(args.frames, gen)
+    torch.cuda.empty_cache()
+    crun = depth_cli_path()
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
-            "odd_heads_path": orun}
+            "odd_heads_path": orun, "depth_cli_path": crun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counter = k.get("counter", k["name"])

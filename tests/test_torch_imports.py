@@ -41,11 +41,18 @@ def test_package_has_the_slice_modules():
             "txr_torch.models.convert", "txr_torch.fusion.keys",
             "txr_torch.fusion.offset_map", "txr_torch.core.derived",
             "txr_torch.ops.quant", "txr_torch.ops.quant_fused",
-            "txr_torch.ops.conv_stripe", "txr_torch.models.checkpoint"}
+            "txr_torch.ops.conv_stripe", "txr_torch.models.checkpoint",
+            "txr_torch._native", "txr_torch.core.config", "txr_torch.io",
+            "txr_torch.io.ply", "txr_torch.io.depth_io",
+            "txr_torch.io.sources", "txr_torch.io.rtabmap_db",
+            "txr_torch.io.opencv", "txr_torch.ros2",
+            "txr_torch.ros2.publisher", "txr_torch.pipelines",
+            "txr_torch.pipelines.depth_pipeline"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
         "conv3x3.cu"}
+    assert (PKG / "_native" / "txr_native.cpp").is_file()
 
 
 def test_import_leaves_jax_flax_txr_out():
@@ -67,10 +74,12 @@ def test_import_builds_nothing_and_needs_no_cuda():
     code = (
         "import sys, pathlib\n"
         "import txr_torch._cuda as k\n"
+        "import txr_torch._native as n\n"
         f"mods = {MODULES!r}\n"
         "import importlib\n"
         "[importlib.import_module(m) for m in mods]\n"
         "assert k._lib is None and not k.build_log\n"
+        "assert n._lib is None and not n._tried\n"
         "assert 'triton' not in sys.modules\n"
         "for m in ('safetensors', 'transformers', 'cv2'):\n"
         "    assert m not in sys.modules, m\n"
@@ -84,9 +93,31 @@ def test_import_builds_nothing_and_needs_no_cuda():
     assert after == before
 
 
+def test_depth_cli_imports_the_port_alone():
+    """Importing the CLI (and parsing its flags) loads neither JAX nor
+    ``txr`` and builds no native library."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('cli', "
+        "'depth_processor_torch.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "sys.argv = ['cli', '--device', 'cpu']\n"
+        "mod.parse_args()\n"
+        "import txr_torch._native as n, txr_torch.pipelines.depth_pipeline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'txr'))\n"
+        "assert not bad, bad\n"
+        "assert n._lib is None and not n._tried\n"
+        "print('clean')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "depth_processor_torch.py"]))
 def test_source_imports_no_jax_flax_txr(path):
     text = (ROOT / path).read_text()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|txr)(?:[.\s]|$)",

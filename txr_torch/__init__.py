@@ -1,10 +1,14 @@
 """txr_torch: the PyTorch / CUDA port of the txr reconstruction framework.
 
 The package mirrors ``txr``'s layout module for module (``core``, ``ops``,
-``models``, ``fusion``) and imports ``torch``, ``numpy`` and the standard
-library only. Entry points run on a CUDA device unless the caller passes
-``device="cpu"``; the hand-written Hopper kernels under ``csrc/`` are built
-at first CUDA use (see ``txr_torch._cuda``), never at import.
+``models``, ``fusion``, ``io``, ``pipelines``, ``ros2``, ``_native``) and
+imports ``torch``, ``numpy`` and the standard library only (OpenCV and
+safetensors at first use where a host path needs them; rclpy, optional, in
+``ros2``). Entry points
+run on a CUDA device unless the caller passes ``device="cpu"``; the
+hand-written Hopper kernels under ``csrc/`` are built at first CUDA use (see
+``txr_torch._cuda``) and the native host library at first host I/O (see
+``txr_torch._native``), never at import.
 """
 
 from txr_torch.core.device import resolve_device

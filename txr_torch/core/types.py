@@ -88,10 +88,18 @@ class PointSet:
     # -- host-boundary compaction -------------------------------------------
 
     def to_numpy(self):
-        """Compact to dense (n, 3) float arrays on the host."""
+        """Compact to dense (n, 3) float arrays on the host: through the
+        native compactor (``txr_torch._native``) when it is built, by numpy
+        indexing otherwise (the same arrays, as ``txr``'s)."""
         xyz = self.xyz.detach().cpu().numpy()
         rgb = self.rgb.detach().cpu().numpy()
         mask = self.mask.detach().cpu().numpy()
+        if xyz.dtype == np.float32 and rgb.dtype == np.float32:
+            from txr_torch._native import native_compact
+
+            out = native_compact(xyz, rgb, mask)
+            if out is not None:
+                return out
         return xyz[mask], rgb[mask]
 
     def __repr__(self):
