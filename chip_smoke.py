@@ -43,12 +43,31 @@ attention kernel and its key-norm pre-pass instead of the f32max kernel);
 frames, with the native host library built from ``txr_torch/_native``: a
 PLY per frame at the source resolution, read back and held against the
 back-projection of ``infer_batch``, the batch-1 loop against the batched
-one, and the ``--int8`` policy over 8 frames.
+one, and the ``--int8`` policy over 8 frames. ``bf16_vs_f32`` holds the
+default bf16 ViT-L's depth against f32 arithmetic on the same bf16-rounded
+weights (``txr``'s arithmetic) on main_path's frames.
+
+``sfm_path`` runs the fusion CLI's sparse path, which holds no kernel of
+the port (plain PyTorch on the card), at the CLI's operating point:
+
+    8 uint8 BGR frames of 1080x1920 (portrait, fx = fy = 1719)
+    -> grey -> CLAHE -> SIFT (capacity 8192, 8000 features)
+    -> L2 ratio matching per consecutive pair (rows capped at 4096)
+    -> essential + homography RANSAC (1024 hypotheses) with model selection
+    -> cheirality pose -> Gauss-Newton refinement -> DLT triangulation
+    -> host pose chain -> world transform -> per-view metric scale
+
+over a seeded floor-and-wall scene rendered here with ``grid_sample``; it
+holds poses, the chosen models and the scales against the scene's ground
+truth, runs the pair and scale stages under PyTorch's sync debug mode,
+repeats them under the process's other TF32 settings, and holds the card
+against the port on the CPU on 2 smaller frames.
 
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
-``depth_cli_path``, then the ``kernels`` summary and, last, the verdict
+``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, then the ``kernels``
+summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
 code is non-zero; nothing runs on the CPU and no kernel is swapped for its
 plain version. Without a CUDA device the script exits with code 2 and
@@ -128,7 +147,14 @@ from txr_torch.ops.scan import TILE as SCAN_TILE
 from txr_torch.ops.scan import (offset_reduce, scan_geometry,
                                 segmented_cumsum_cols)
 from txr_torch.ops.segment import segmented_cumsum
+from txr_torch.geometry.epipolar import essential_ransac
+from txr_torch.geometry.features import SIFTDetector
+from txr_torch.geometry.homography import homography_ransac, transfer_error
+from txr_torch.geometry.scale import clamp_scale
+from txr_torch.ops.matching import match_l2_ratio
 from txr_torch.pipelines.depth_pipeline import DepthProcessor
+from txr_torch.pipelines.fusion_pipeline import (_pairs_batch, _scales_batch,
+                                                 pair_step)
 
 # Published dense peaks of one H100 SXM, used for the bounds.
 PEAK_BF16_FLOPS = 989e12
@@ -1702,6 +1728,606 @@ def depth_cli_path() -> dict:
     return out
 
 
+# ------------------------------------------------------------- sparse SfM
+
+# The fusion CLI's operating point (depth_to_reconstruction.py:31-34 and
+# txr/core/config.py:25-31): portrait 1080 x 1920 frames, K fx = fy = 1719,
+# cx 540, cy 960; SIFT capacity 8192, 8000 features, contrast 0.01, edge 15,
+# CLAHE on; ratio 0.75; TXR_PAIR_CAP 4096; 1024 hypotheses, 3 px, depth
+# range 0.1 to 50 (in units of the pair's baseline, |t| = 1).
+SFM_H, SFM_W = 1920, 1080
+SFM_K = (1719.0, 1719.0, 540.0, 960.0)
+SFM_FRAMES = 8
+SFM_SIFT = dict(n_features=8000, contrast_threshold=0.01, edge_threshold=15,
+                use_clahe=True, capacity=8192)
+SFM_RANSAC = dict(match_ratio=0.75, ransac_threshold=3.0, min_depth=0.1,
+                  max_depth=50.0, num_hypotheses=1024)
+# The scene: a floor 1.4 m below the camera and a wall 3.4 m ahead, seen
+# pitched 30 degrees down (depths 1.4 to 3.7 m, the wall the top 38 % of
+# the frame, about 55 % of the matches: no plane holds the 70 % that makes
+# pair_step take the homography, so the essential matrix is the right
+# model); 8 cm sideways and 0.2 degrees of yaw a frame; 1 cm texture
+# blocks. Relative depth is the metric depth over 6, so the true scale is
+# 6 / 0.08 = 75 (the pair's |t| is 1), and every point stays inside the
+# depth range of 50 baselines (4 m).
+SFM_SCENE = dict(cam_height=1.4, wall_z=3.4, pitch_deg=30.0, baseline=0.08,
+                 yaw_deg=0.2, depth_div=6.0, blocks_per_m=100.0)
+SFM_TOL = dict(scale_rel=0.02, rot_deg=0.5, t_dir_deg=10.0,
+               why="scale and rotation as the slice asks (the CPU golden "
+                   "test allows 5 % at 256 x 192). The direction of t only "
+                   "against a gross failure: a sideways baseline leaves its "
+                   "forward part weakly determined, and one mismatch that a "
+                   "winning hypothesis admits at its 3 px threshold turns "
+                   "t by 6 degrees (R by 0.14) in txr as in the port: "
+                   "RANSAC refits and refines on every inlier, unweighted")
+# card against the port on the CPU, on the same inputs (tests/
+# test_torch_sfm.py holds the CPU port to txr at the same tolerances)
+SFM_PARITY_TOL = dict(uv_px=1e-2, desc=1.0, pose=1e-4, scale_rel=1e-5,
+                      keypoint_flips=0.01,
+                      why="SIFT from the BGR frame: the detector tolerances "
+                          "of tests/test_torch_features.py, uv 1e-2 px and "
+                          "descriptors 1.0 of 255 (CLAHE may round a blend "
+                          "one grey level the other way, and cuDNN and "
+                          "cuBLAS sum in another order); a keypoint whose "
+                          "DoG test sits at a threshold may flip (at most "
+                          "1 %). Then the CPU's features through both: the "
+                          "same matches and masks, R and t 1e-4, scales "
+                          "1e-5 relative")
+
+
+def _rot(axis: int, deg: float) -> np.ndarray:
+    a = np.radians(deg)
+    c, s = np.cos(a), np.sin(a)
+    i, j = [k for k in range(3) if k != axis]
+    r = np.eye(3)
+    r[i, i], r[i, j], r[j, i], r[j, j] = c, -s, s, c
+    return r
+
+
+def two_plane_scene(h: int, w: int, K: tuple, frames: int, device,
+                    seed: int = 0, **overrides) -> dict:
+    """Frames of a textured floor and wall with their ground truth.
+
+    World axes x right, y down, z ahead; camera i sits at
+    (i * baseline, 0, 0), pitched down by ``pitch_deg`` and turned by
+    ``i * yaw_deg`` about y. Each pixel's ray meets the floor (y =
+    cam_height) or the wall (z = wall_z), whichever is nearer; the colour
+    is the plane's texture there (blocky noise, ``blocks_per_m`` blocks a
+    metre, nearest-upsampled 4x, sampled bilinearly by ``grid_sample``: a
+    homography warp per plane). Returns BGR uint8 frames, metric depth, the
+    plane of each pixel (0 wall, 1 floor), world -> camera poses (float64
+    numpy) and the scene's parameters."""
+    p = dict(SFM_SCENE, **overrides)
+    fx, fy, cx, cy = K
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def texture(blocks):
+        t = torch.randint(0, 256, (1, 3, blocks, blocks), generator=gen)
+        return F.interpolate(t.float(), scale_factor=4,
+                             mode="nearest").to(device)
+
+    n_blocks = int(6.0 * p["blocks_per_m"])     # both textures span 6 m
+    wall_tex, floor_tex = texture(n_blocks), texture(n_blocks)
+    v, u = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=device),
+                          torch.arange(w, dtype=torch.float64, device=device),
+                          indexing="ij")
+    rays = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)],
+                       dim=-1)                              # camera frame
+    pitch = _rot(0, -p["pitch_deg"])      # camera y, z turned towards +y
+    bgr, depth, label, Rs, ts = [], [], [], [], []
+    for i in range(frames):
+        c2w = _rot(1, i * p["yaw_deg"]) @ pitch
+        centre = np.array([i * p["baseline"], 0.0, 0.0])
+        d = rays @ torch.from_numpy(c2w.T).to(device)       # world rays
+        s_floor = torch.where(d[..., 1] > 1e-9,
+                              p["cam_height"] / d[..., 1], torch.inf)
+        s_wall = torch.where(d[..., 2] > 1e-9, p["wall_z"] / d[..., 2],
+                             torch.inf)
+        floor = s_floor < s_wall
+        s = torch.where(floor, s_floor, s_wall)
+        hit = torch.from_numpy(centre).to(device) + s[..., None] * d
+        # texture coordinates in [-1, 1]: wall (x, y) over [-3, 3] m,
+        # floor (x, z) over [-3, 3] x [0, 6] m
+        g_wall = torch.stack([hit[..., 0] / 3, hit[..., 1] / 3], -1)
+        g_floor = torch.stack([hit[..., 0] / 3, hit[..., 2] / 3 - 1], -1)
+        colour = torch.where(
+            floor[None, None],
+            F.grid_sample(floor_tex, g_floor[None].float(), mode="bilinear",
+                          padding_mode="border", align_corners=False),
+            F.grid_sample(wall_tex, g_wall[None].float(), mode="bilinear",
+                          padding_mode="border", align_corners=False))
+        bgr.append(colour[0].permute(1, 2, 0).round().clamp(0, 255).to(
+            torch.uint8))
+        depth.append(s.float())       # rays have z = 1 in the camera frame
+        label.append(floor.to(torch.uint8))
+        Rs.append(c2w.T)
+        ts.append(-c2w.T @ centre)
+    return {"bgr": torch.stack(bgr), "depth": torch.stack(depth),
+            "label": torch.stack(label), "R": np.stack(Rs), "t": np.stack(ts),
+            "params": p}
+
+
+def relative_truth(R: np.ndarray, t: np.ndarray) -> tuple:
+    """Per consecutive pair, the true relative rotation and the unit
+    direction of the relative translation (camera p to camera p + 1)."""
+    R_rel = R[1:] @ np.swapaxes(R[:-1], 1, 2)
+    t_rel = t[1:] - np.einsum("pij,pj->pi", R_rel, t[:-1])
+    return R_rel, t_rel / np.linalg.norm(t_rel, axis=-1, keepdims=True)
+
+
+def angle_deg(R_a: np.ndarray, R_b: np.ndarray) -> float:
+    c = (np.trace(R_a.T @ R_b) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def stack_features(feats: list) -> tuple:
+    return (torch.stack([f.desc for f in feats]),
+            torch.stack([f.mask for f in feats]),
+            torch.stack([f.uv for f in feats]))
+
+
+def chain_views(R_rel: np.ndarray, t_rel: np.ndarray, n_match: np.ndarray,
+                n_inl: np.ndarray) -> tuple:
+    """The fusion pipeline's host pose chain with the reference's skip rules
+    (txr/pipelines/fusion_pipeline.py:536-560): R_prev[p] / t_prev[p] is the
+    last successful pose before view p + 1. Returns (R_prev, t_prev,
+    processed views)."""
+    P = len(R_rel)
+    poses = [(np.eye(3, dtype=np.float32), np.zeros(3, np.float32)),
+             (R_rel[0], t_rel[0])]
+    R_prev = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+    t_prev = np.zeros((P, 3), np.float32)
+    processed = []
+    for i in range(2, P + 1):
+        p = i - 1
+        if n_match[p] < 8 or n_inl[p] < 8:
+            continue
+        Rp, tp = poses[-1]
+        R_prev[p], t_prev[p] = Rp, tp
+        poses.append((R_rel[p] @ Rp, R_rel[p] @ tp + t_rel[p]))
+        processed.append(i)
+    return R_prev, t_prev, processed
+
+
+def run_sparse(desc, fmask, fuv, depths, K, generator=None,
+               priorities=None, no_sync: bool = False) -> dict:
+    """The fusion CLI's sparse stages: every pair, the host chain, the
+    scales. With ``no_sync`` the pair and scale stages run under
+    ``torch.cuda.set_sync_debug_mode("error")``: any read of a value back
+    to the host inside them raises."""
+    cfg = SFM_RANSAC
+    on_card = desc.device.type == "cuda"
+
+    def guarded(fn):
+        if not (no_sync and on_card):
+            return fn()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    t0 = time.perf_counter()
+    pairs = guarded(lambda: _pairs_batch(
+        desc, fmask, fuv, K, generator, cfg["match_ratio"],
+        cfg["ransac_threshold"], cfg["min_depth"], cfg["max_depth"],
+        num_hypotheses=cfg["num_hypotheses"], priorities=priorities))
+    R_rel, t_rel, X, valid, n_inl, n_match, uv1, uv2, ok = pairs
+    if on_card:
+        torch.cuda.synchronize()
+    pairs_s = time.perf_counter() - t0
+    R_h, t_h, ni_h, nm_h = (a.cpu().numpy() for a in
+                            (R_rel, t_rel, n_inl, n_match))
+    R_prev, t_prev, processed = chain_views(R_h, t_h, nm_h, ni_h)
+    R_prev, t_prev = (torch.from_numpy(a).to(X.device)
+                      for a in (R_prev, t_prev))
+    t0 = time.perf_counter()
+    s1, s2, n_valid0, sw, ok_n = guarded(lambda: _scales_batch(
+        X, valid, uv1, uv2, depths, R_prev, t_prev))
+    s1, s2, sw = clamp_scale(s1), clamp_scale(s2), clamp_scale(sw)
+    if on_card:
+        torch.cuda.synchronize()
+    scales_s = time.perf_counter() - t0
+    return {"R": R_h, "t": t_h, "X": X, "valid": valid, "n_inl": ni_h,
+            "n_match": nm_h, "uv1": uv1, "uv2": uv2, "ok": ok,
+            "s1": float(s1), "s2": float(s2), "n_valid0": int(n_valid0),
+            "sw": sw.cpu().numpy(), "ok_n": ok_n.cpu().numpy(),
+            "processed": processed, "pairs_s": pairs_s,
+            "scales_s": scales_s}
+
+
+def model_choice(uv1, uv2, ok, K, prio_e, prio_h) -> dict:
+    """pair_step's model selection recomputed on a pair's rows with the
+    priorities it drew: n_E, n_H and whether the homography won."""
+    thr = SFM_RANSAC["ransac_threshold"]
+    hyp = SFM_RANSAC["num_hypotheses"]
+    _, inl_e = essential_ransac(uv1, uv2, ok, K, None, thr, hyp,
+                                priorities=prio_e)
+    H, _ = homography_ransac(uv1, uv2, ok, None, max(thr, 3.0), hyp,
+                             priorities=prio_h)
+    n_h = int((ok & (transfer_error(H, uv1, uv2) < 2.0 * thr ** 2)).sum())
+    n_e = int(inl_e.sum())
+    return {"n_E": n_e, "n_H": n_h, "model": "H" if n_h > 0.7 * n_e else "E"}
+
+
+def plane_share(scene: dict, p: int, uv1: torch.Tensor,
+                ok: torch.Tensor) -> float:
+    """Share of pair p's matches whose keypoint in view p lies on the
+    larger of the two planes (ground truth)."""
+    u = uv1[:, 0].round().long().clamp(0, scene["label"].shape[2] - 1)
+    v = uv1[:, 1].round().long().clamp(0, scene["label"].shape[1] - 1)
+    lab = scene["label"][p].to(uv1.device)[v, u].float()
+    okf = ok.float()
+    floor = float((lab * okf).sum() / okf.sum().clamp(min=1))
+    return max(floor, 1.0 - floor)
+
+
+def count_kernels(fn) -> tuple:
+    """Kernel launches of one call of ``fn`` under ``torch.profiler``, its
+    device time and its wall time under the profiler (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.end - e.time_range.start
+                    for e in spans) / 1e3
+    return len(spans), device_ms, wall_ms
+
+
+def compare_keypoints(f_card, f_cpu) -> dict:
+    """Card against CPU SIFT of one frame: keypoints matched by position
+    (1e-2 px); the rest flipped at a threshold."""
+    a_uv = f_card.uv[f_card.mask].cpu().double()
+    b_uv = f_cpu.uv[f_cpu.mask].double()
+    d = torch.cdist(a_uv, b_uv)
+    near, j = d.min(dim=1)
+    pair = near < 1e-2
+    flips = int((~pair).sum()) + (len(b_uv) - int(pair.sum()))
+    desc_a = f_card.desc[f_card.mask].cpu()[pair]
+    desc_b = f_cpu.desc[f_cpu.mask][j[pair]]
+    return {"valid_card": len(a_uv), "valid_cpu": len(b_uv),
+            "flipped": flips,
+            "uv_max_err_px": float(near[pair].max()) if pair.any() else 0.0,
+            "desc_max_err": float((desc_a - desc_b).abs().max())
+            if pair.any() else 0.0}
+
+
+def sfm_parity(gen_seed: int) -> dict:
+    """The port on the card against the port on the CPU: 2 frames of
+    480 x 640 (W x H) of the scene, SIFT on both, then the CPU's features
+    through the pair and scale stages on both with the same priorities."""
+    s = 480 / SFM_W
+    K4 = (SFM_K[0] * s, SFM_K[1] * s, SFM_K[2] * s, SFM_K[3] * s)
+    scene = two_plane_scene(640, 480, K4, 2, "cpu", seed=1)
+    depths = scene["depth"] / SFM_SCENE["depth_div"]
+    cpu = SIFTDetector(**SFM_SIFT, backend="device", device="cpu")
+    card = SIFTDetector(**SFM_SIFT, backend="device")
+    f_cpu = cpu.detect_batch(scene["bgr"])
+    f_card = card.detect_batch(scene["bgr"].cuda())
+    kp = [compare_keypoints(a, b) for a, b in zip(f_card, f_cpu)]
+    for k in kp:
+        if (k["flipped"] > SFM_PARITY_TOL["keypoint_flips"]
+                * max(k["valid_cpu"], 1) or k["uv_max_err_px"]
+                > SFM_PARITY_TOL["uv_px"]
+                or k["desc_max_err"] > SFM_PARITY_TOL["desc"]):
+            raise AssertionError(f"sfm parity: SIFT on the card against the "
+                                 f"CPU: {k}")
+    desc, fmask, fuv = stack_features(f_cpu)
+    Kt = torch.tensor([[K4[0], 0, K4[2]], [0, K4[1], K4[3]], [0, 0, 1]],
+                      dtype=torch.float32)
+    rows = min(int(os.environ.get("TXR_PAIR_CAP", "4096")) or desc.shape[1],
+               desc.shape[1])
+    prio = torch.rand((1, 2, SFM_RANSAC["num_hypotheses"], rows),
+                      generator=torch.Generator().manual_seed(gen_seed))
+    got = run_sparse(desc.cuda(), fmask.cuda(), fuv.cuda(), depths.cuda(),
+                     Kt.cuda(), priorities=prio.cuda(), no_sync=True)
+    want = run_sparse(desc, fmask, fuv, depths, Kt, priorities=prio)
+    same_ok = torch.equal(got["ok"].cpu(), want["ok"])
+    okm = want["ok"][0]
+    uv2_err = float((got["uv2"].cpu()[0][okm] - want["uv2"][0][okm])
+                    .abs().max())
+    same_valid = torch.equal(got["valid"].cpu(), want["valid"])
+    pose_err = max(float(np.abs(got["R"] - want["R"]).max()),
+                   float(np.abs(got["t"] - want["t"]).max()))
+    scale_err = max(abs(got[k] / want[k] - 1.0) for k in ("s1", "s2"))
+    out = {"frames": 2, "input": [640, 480], "keypoints": kp,
+           "matches_equal": same_ok, "matched_uv2_max_err_px": uv2_err,
+           "n_match": int(want["n_match"][0]),
+           "valid_equal": same_valid, "n_valid": int(want["n_valid0"]),
+           "pose_max_abs_err": pose_err, "scale_max_rel_err": scale_err,
+           "scales_card": [got["s1"], got["s2"]],
+           "scales_cpu": [want["s1"], want["s2"]],
+           "tolerance": SFM_PARITY_TOL}
+    if not (same_ok and uv2_err == 0.0 and same_valid
+            and pose_err <= SFM_PARITY_TOL["pose"]
+            and scale_err <= SFM_PARITY_TOL["scale_rel"]):
+        raise AssertionError(f"sfm parity: card against CPU {out}")
+    return out
+
+
+def sfm_geometry_runs(desc, fmask, fuv, depths, K, seed: int) -> dict:
+    """The pair and scale stages on fixed features under other TF32
+    settings of the process: PyTorch's defaults (matmul off, cuDNN on) and
+    both on; and, as a control, both on with ``TXR_F32_DOTS=0``."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    out = {}
+    try:
+        for name, (mm, dnn, dots) in {
+                "off_off": (False, False, "1"),
+                "defaults": (False, True, "1"),
+                "on_on": (True, True, "1"),
+                "on_on_f32_dots_disabled": (True, True, "0")}.items():
+            flags[0].allow_tf32, flags[1].allow_tf32 = mm, dnn
+            os.environ["TXR_F32_DOTS"] = dots
+            out[name] = run_sparse(
+                desc, fmask, fuv, depths, K,
+                generator=torch.Generator(device="cuda").manual_seed(seed))
+    finally:
+        flags[0].allow_tf32, flags[1].allow_tf32 = saved
+        os.environ.pop("TXR_F32_DOTS", None)
+    return out
+
+
+def sfm_check_truth(run: dict, R_true, t_dir) -> tuple:
+    """Per pair rotation error and translation-direction angle, per view
+    scale against the truth; returns (pairs, views, worst)."""
+    truth = SFM_SCENE["depth_div"] / SFM_SCENE["baseline"]
+    pairs = []
+    for p in range(len(run["R"])):
+        cosang = float(np.clip(run["t"][p] @ t_dir[p], -1.0, 1.0))
+        pairs.append({"pair": [p, p + 1],
+                      "rot_err_deg": angle_deg(run["R"][p], R_true[p]),
+                      "t_dir_err_deg": float(np.degrees(np.arccos(cosang))),
+                      "matches": int(run["n_match"][p]),
+                      "inliers": int(run["n_inl"][p])})
+    views = [{"view": 0, "scale": run["s1"]}, {"view": 1, "scale": run["s2"]}]
+    views += [{"view": i, "scale": float(run["sw"][i - 1]),
+               "samples": int(run["ok_n"][i - 1])} for i in run["processed"]]
+    for v in views:
+        v["rel_err"] = v["scale"] / truth - 1.0
+    worst = {"rot_err_deg": max(r["rot_err_deg"] for r in pairs),
+             "t_dir_err_deg": max(r["t_dir_err_deg"] for r in pairs),
+             "scale_rel_err": max(abs(v["rel_err"]) for v in views),
+             "true_scale": truth}
+    return pairs, views, worst
+
+
+def sfm_path() -> dict:
+    """The fusion CLI's sparse path on the card at its operating point: 8
+    frames of 1080 x 1920 -> grey -> CLAHE -> SIFT -> ratio matching ->
+    essential + homography RANSAC with model selection -> pose -> refine
+    -> triangulation -> world transform -> per-view metric scale, held
+    against the scene's ground truth, against the port on the CPU, and
+    under the process's other TF32 settings."""
+    dev = torch.device("cuda")
+    K = torch.tensor([[SFM_K[0], 0, SFM_K[2]], [0, SFM_K[1], SFM_K[3]],
+                      [0, 0, 1]], dtype=torch.float32, device=dev)
+    scene = two_plane_scene(SFM_H, SFM_W, SFM_K, SFM_FRAMES, dev)
+    depths = scene["depth"] / SFM_SCENE["depth_div"]
+    R_true, t_dir = relative_truth(scene["R"], scene["t"])
+    detector = SIFTDetector(**SFM_SIFT)
+    if detector.backend != "device" or detector.device.type != "cuda":
+        raise AssertionError(f"SIFTDetector resolved to {detector.backend} "
+                             f"on {detector.device}")
+    frames = scene["bgr"]
+    kernels.reset_launches()
+
+    # warm-up: cuDNN picks its convolutions, the allocator fills
+    detector.detect(frames[0])
+    warm = stack_features(detector.detect_batch(frames[:2]))
+    run_sparse(*warm, depths[:2], K, torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    t_start = time.perf_counter()
+    feats, det_ms = [], []
+    for i in range(SFM_FRAMES):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        feats.append(detector.detect(frames[i]))
+        b.record()
+        torch.cuda.synchronize()
+        det_ms.append(a.elapsed_time(b))
+    desc, fmask, fuv = stack_features(feats)
+    seed = 0
+    run = run_sparse(desc, fmask, fuv, depths, K,
+                     torch.Generator(device=dev).manual_seed(seed),
+                     no_sync=True)
+    wall_s = time.perf_counter() - t_start
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launches)
+    if any(launches.values()):
+        raise AssertionError(f"sfm_path launched port kernels: {launches}")
+
+    # ground truth; the model each pair chose, from the priorities it drew
+    pairs, views, worst = sfm_check_truth(run, R_true, t_dir)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = run["uv1"].shape[1]
+    for p, row in enumerate(pairs):
+        prio = [torch.rand((SFM_RANSAC["num_hypotheses"], rows),
+                           generator=gen, device=dev) for _ in range(2)]
+        choice = model_choice(run["uv1"][p], run["uv2"][p], run["ok"][p], K,
+                              *prio)
+        share = plane_share(scene, p, run["uv1"][p], run["ok"][p])
+        expect = "H" if share > 0.8 else "E" if share < 0.6 else "either"
+        row.update(choice, larger_plane_share=share, expected_model=expect)
+    wrong = [r for r in pairs if r["expected_model"] not in
+             ("either", r["model"])]
+    if (worst["rot_err_deg"] > SFM_TOL["rot_deg"]
+            or worst["t_dir_err_deg"] > SFM_TOL["t_dir_deg"]
+            or worst["scale_rel_err"] > SFM_TOL["scale_rel"] or wrong
+            or len(run["processed"]) != SFM_FRAMES - 2):
+        raise AssertionError(f"sfm_path against ground truth: {worst}, "
+                             f"pairs {pairs}, views {views}")
+
+    # stage times at the path's shapes
+    p0 = (desc[0], desc[1], fmask[0], fmask[1])
+    match_ms = time_ms(lambda: match_l2_ratio(*p0, 0.75), runs=5)
+    u1c, u2c, okc = run["uv1"][0], run["uv2"][0], run["ok"][0]
+
+    def one_pair():
+        return pair_step(u1c, u2c, okc, K,
+                         torch.Generator(device=dev).manual_seed(1),
+                         SFM_RANSAC["ransac_threshold"],
+                         SFM_RANSAC["min_depth"], SFM_RANSAC["max_depth"],
+                         num_hypotheses=SFM_RANSAC["num_hypotheses"])
+
+    pair_ms = time_ms(one_pair, runs=3)
+    R_prev = torch.eye(3, device=dev).expand(SFM_FRAMES - 1, 3, 3)
+    t_prev = torch.zeros((SFM_FRAMES - 1, 3), device=dev)
+    scales_ms = time_ms(lambda: _scales_batch(
+        run["X"], run["valid"], run["uv1"], run["uv2"], depths, R_prev,
+        t_prev), runs=5)
+    sift_launches, sift_dev_ms, sift_wall = count_kernels(
+        lambda: detector.detect(frames[0]))
+    pair_launches, pair_dev_ms, pair_wall = count_kernels(one_pair)
+    match_launches, match_dev_ms, _ = count_kernels(
+        lambda: match_l2_ratio(*p0, 0.75))
+    sc_launches, sc_dev_ms, _ = count_kernels(lambda: _scales_batch(
+        run["X"], run["valid"], run["uv1"], run["uv2"], depths, R_prev,
+        t_prev))
+    n_pairs = SFM_FRAMES - 1
+    device_ms = (SFM_FRAMES * sift_dev_ms
+                 + n_pairs * (match_dev_ms + pair_dev_ms) + sc_dev_ms)
+
+    # the same stages under the process's other TF32 settings
+    runs = sfm_geometry_runs(desc, fmask, fuv, depths, K, seed)
+    base = runs["off_off"]
+    precision = {}
+    for name, r in runs.items():
+        diff = {"R": float(np.abs(r["R"] - base["R"]).max()),
+                "t": float(np.abs(r["t"] - base["t"]).max()),
+                "scale_rel": max(abs(r[k] / base[k] - 1.0)
+                                 for k in ("s1", "s2")),
+                "view_scale_rel": float(np.abs(r["sw"] / base["sw"] - 1.0)
+                                        [np.array(run["processed"]) - 1]
+                                        .max()),
+                "bit_equal": bool(np.array_equal(r["R"], base["R"])
+                                  and np.array_equal(r["t"], base["t"])
+                                  and r["s1"] == base["s1"]
+                                  and np.array_equal(r["sw"], base["sw"]))}
+        precision[name] = diff
+        if name in ("defaults", "on_on") and (
+                diff["R"] > 1e-6 or diff["t"] > 1e-6
+                or diff["scale_rel"] > 1e-6 or diff["view_scale_rel"] > 1e-6):
+            raise AssertionError(f"sfm_path: TF32 setting {name} moved the "
+                                 f"geometry: {diff}")
+    # the whole path, SIFT included, with both TF32 switches on: SIFT and
+    # CLAHE are not under f32_dots (as in txr), so keypoints may move
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        flags[0].allow_tf32 = flags[1].allow_tf32 = True
+        f_on = stack_features(detector.detect_batch(frames))
+        r_on = run_sparse(*f_on, depths, K,
+                          torch.Generator(device=dev).manual_seed(seed))
+    finally:
+        flags[0].allow_tf32, flags[1].allow_tf32 = saved
+    _, _, worst_on = sfm_check_truth(r_on, R_true, t_dir)
+    precision["whole_path_on_on"] = {
+        "against_truth": worst_on,
+        "keypoints_valid": [int(m.sum()) for m in f_on[1]],
+        "keypoints_valid_off_off": [int(m.sum()) for m in fmask]}
+    if (worst_on["rot_err_deg"] > SFM_TOL["rot_deg"]
+            or worst_on["scale_rel_err"] > SFM_TOL["scale_rel"]):
+        raise AssertionError(f"sfm_path with TF32 on: {worst_on}")
+
+    parity = sfm_parity(seed)
+    out = {"phase": "sfm_path", "input": [SFM_H, SFM_W], "K": list(SFM_K),
+           "frames": SFM_FRAMES, "sift": SFM_SIFT, "ransac": SFM_RANSAC,
+           "pair_cap_rows": rows, "scene": scene["params"],
+           "tolerance": SFM_TOL, "pairs": pairs, "views": views,
+           "worst": worst, "keypoints_valid": [int(m.sum()) for m in fmask],
+           "wall_s": wall_s, "pairs_s": run["pairs_s"],
+           "scales_s": run["scales_s"],
+           "sift_ms_per_frame": statistics.mean(det_ms),
+           "sift_ms_per_frame_each": det_ms,
+           "match_ms_per_pair": match_ms, "pair_step_ms_per_pair": pair_ms,
+           "scales_batch_ms": scales_ms,
+           "launches_per_frame_sift": sift_launches,
+           "launches_per_pair_match": match_launches,
+           "launches_per_pair_step": pair_launches,
+           "launches_scales_batch": sc_launches,
+           "device_ms_per_frame_sift": sift_dev_ms,
+           "device_ms_per_pair": match_dev_ms + pair_dev_ms,
+           "device_ms_scales_batch": sc_dev_ms,
+           "wall_ms_under_profiler": {"sift_frame": sift_wall,
+                                      "pair_step": pair_wall},
+           "device_busy_share": device_ms / (wall_s * 1e3),
+           "peak_memory_bytes": peak, "no_host_sync": True,
+           "precision": precision, "card_vs_cpu": parity,
+           "launches": launches, "launches_over_steps": 1, "ok": True}
+    emit(out)
+    return out
+
+
+def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
+    """The depth error of the port's bf16 arithmetic: the default model
+    (bf16, attention and tail kernels) against an f32 model carrying the
+    same bf16-rounded weights with ``use_flash=False`` and
+    ``fused_head=False`` (``txr``'s f32 arithmetic on bf16 parameters), on
+    main_path's 8 seeded 1080p frames, as a share of the f32 depth's span;
+    printed beside ``int8_share``, depth_cli_path's ``"int8"`` policy
+    against bf16 in the same run."""
+    in_h, in_w = compute_da_resize(H, W, 518)
+    bf16, _, _ = build_model("v2", "vitl", dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    saved = os.environ.get("TXR_FUSED_HEAD")
+    os.environ["TXR_FUSED_HEAD"] = "0"
+    try:
+        f32, _, dpt_cfg = build_model("v2", "vitl", use_flash=False,
+                                      dtype=torch.float32,
+                                      generator=torch.Generator().manual_seed(0))
+    finally:
+        if saved is None:
+            os.environ.pop("TXR_FUSED_HEAD", None)
+        else:
+            os.environ["TXR_FUSED_HEAD"] = saved
+    f32.load_state_dict({k: v.float() for k, v in bf16.state_dict().items()})
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (frames, H, W, 3),
+                                      dtype=np.uint8)).cuda()
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    with torch.no_grad():
+        xm = resize_bicubic(x.to(torch.float32) / 255.0, in_h, in_w,
+                            align_corners=False)
+        xn = (xm - mean) / std
+        kernels.reset_launches()
+        d_bf16 = bf16(xn.to(torch.bfloat16)).to(torch.float32)
+        torch.cuda.synchronize()
+        used_bf16 = dict(kernels.launches)
+        kernels.reset_launches()
+        d_f32 = f32(xn)
+        torch.cuda.synchronize()
+        used_f32 = dict(kernels.launches)
+    if (any(used_f32.values()) or used_bf16["attention"] != 24
+            or used_bf16["dpt_tail"] != 1 or dpt_cfg.fused_head is not False):
+        raise AssertionError(f"bf16 model launched {used_bf16}, f32 model "
+                             f"{used_f32}")
+    if not (torch.isfinite(d_f32).all() and torch.isfinite(d_bf16).all()):
+        raise AssertionError("bf16_vs_f32: depth is not finite")
+    ref = d_f32.cpu().numpy()
+    share = depth_share(d_bf16.cpu().numpy() - ref,
+                        float(ref.max() - ref.min()))
+    out = {"phase": "bf16_vs_f32", "model": "v2/vitl", "frames": frames,
+           "input": [H, W], "model_input": [in_h, in_w],
+           "depth_bf16_vs_f32": share,
+           "depth_int8_policy_vs_bf16": int8_share,
+           "launches": {"bf16": used_bf16, "f32": used_f32}, "ok": True}
+    emit(out)
+    del bf16, f32
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(phase: str, run_step) -> None:
     """One step under ``torch.profiler``; emit the device time by kernel."""
     from torch.autograd import DeviceType
@@ -1881,8 +2507,13 @@ def main() -> int:
     orun = odd_heads_path(args.frames, gen)
     torch.cuda.empty_cache()
     crun = depth_cli_path()
+    torch.cuda.empty_cache()
+    bf16_vs_f32(args.frames, crun["int8"]["depth_vs_bf16"])
+    srun = sfm_path()
+    torch.cuda.empty_cache()
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
-            "odd_heads_path": orun, "depth_cli_path": crun}
+            "odd_heads_path": orun, "depth_cli_path": crun,
+            "sfm_path": srun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counter = k.get("counter", k["name"])

@@ -47,7 +47,14 @@ def test_package_has_the_slice_modules():
             "txr_torch.io.sources", "txr_torch.io.rtabmap_db",
             "txr_torch.io.opencv", "txr_torch.ros2",
             "txr_torch.ros2.publisher", "txr_torch.pipelines",
-            "txr_torch.pipelines.depth_pipeline"}
+            "txr_torch.pipelines.depth_pipeline",
+            "txr_torch.core.precision", "txr_torch.ops.eigsmall",
+            "txr_torch.ops.matching", "txr_torch.ops.clahe",
+            "txr_torch.ops.sift", "txr_torch.geometry",
+            "txr_torch.geometry.features", "txr_torch.geometry.triangulate",
+            "txr_torch.geometry.epipolar", "txr_torch.geometry.pose",
+            "txr_torch.geometry.homography", "txr_torch.geometry.refine",
+            "txr_torch.geometry.scale", "txr_torch.pipelines.fusion_pipeline"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",

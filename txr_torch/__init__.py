@@ -1,7 +1,8 @@
 """txr_torch: the PyTorch / CUDA port of the txr reconstruction framework.
 
 The package mirrors ``txr``'s layout module for module (``core``, ``ops``,
-``models``, ``fusion``, ``io``, ``pipelines``, ``ros2``, ``_native``) and
+``models``, ``fusion``, ``geometry``, ``io``, ``pipelines``, ``ros2``,
+``_native``) and
 imports ``torch``, ``numpy`` and the standard library only (OpenCV and
 safetensors at first use where a host path needs them; rclpy, optional, in
 ``ros2``). Entry points
