@@ -63,10 +63,25 @@ truth, runs the pair and scale stages under PyTorch's sync debug mode,
 repeats them under the process's other TF32 settings, and holds the card
 against the port on the CPU on 2 smaller frames.
 
+``fusion_cli_path`` runs ``depth_to_reconstruction_torch.py``'s pipeline
+(``DepthToReconstructionPipeline`` at the CLI's defaults, the ``auto``
+feature backend) end to end on 8 views of that scene, filled in as
+``load_data`` would: features, pairs, host pose chain, scales, then the
+dense merge of 9 x 518,400 rows (back-projection -> three-key sort ->
+segmented-scan kernel -> voxel means -> ``auto_cell`` + grid kNN outlier
+removal) and a PLY written and read back. Poses and scales are held to the
+truth; the dense stage on the true poses and metric scale is held to the
+two true planes (1e-4 m), to a float64 host reduce and to the chunked
+route (2 views a chunk), and the scan kernel to its plain version on the
+columns and starts ``reconstruct()`` handed it (and on the true poses').
+Each stage is timed between CUDA events; launches and the card's busy
+share come from one more ``reconstruct()`` under the profiler.
+
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
-``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, then the ``kernels``
+``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
+then the ``kernels``
 summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
 code is non-zero; nothing runs on the CPU and no kernel is swapped for its
@@ -86,7 +101,9 @@ first).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -153,8 +170,15 @@ from txr_torch.geometry.homography import homography_ransac, transfer_error
 from txr_torch.geometry.scale import clamp_scale
 from txr_torch.ops.matching import match_l2_ratio
 from txr_torch.pipelines.depth_pipeline import DepthProcessor
-from txr_torch.pipelines.fusion_pipeline import (_pairs_batch, _scales_batch,
-                                                 pair_step)
+from txr_torch.pipelines.fusion_pipeline import (
+    DepthToReconstructionPipeline, _dense_merge_batch, _pairs_batch,
+    _scales_batch, dense_chunk_views, pair_step)
+from txr_torch.core.config import ReconstructionConfig
+from txr_torch.fusion.chunked_merge import chunked_dense_voxel_merge
+from txr_torch.fusion.pointcloud import backproject_views
+from txr_torch.ops.outlier import remove_statistical_outliers_grid
+from txr_torch.ops.segment import lexsort3
+from txr_torch.ops.voxel import _voxel_keys, _weighted_cols, voxel_downsample
 
 # Published dense peaks of one H100 SXM, used for the bounds.
 PEAK_BF16_FLOPS = 989e12
@@ -1962,9 +1986,10 @@ def plane_share(scene: dict, p: int, uv1: torch.Tensor,
     return max(floor, 1.0 - floor)
 
 
-def count_kernels(fn) -> tuple:
-    """Kernel launches of one call of ``fn`` under ``torch.profiler``, its
-    device time and its wall time under the profiler (ms)."""
+def kernel_breakdown(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: launches, device time
+    and wall time (ms), and the ``top`` kernels by device time with their
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1974,10 +1999,26 @@ def count_kernels(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.time_range.end - e.time_range.start
-                    for e in spans) / 1e3
-    return len(spans), device_ms, wall_ms
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        row = by_name.setdefault(e.key[:90], {"name": e.key[:90],
+                                              "calls": 0, "ms": 0.0})
+        row["calls"] += 1
+        row["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    rows = sorted(by_name.values(), key=lambda r: -r["ms"])
+    return {"launches": sum(r["calls"] for r in rows),
+            "device_ms": sum(r["ms"] for r in rows),
+            "wall_ms_under_profiler": wall_ms, "kernels_by_device_ms":
+            rows[:top], "rest_ms": sum(r["ms"] for r in rows[top:])}
+
+
+def count_kernels(fn) -> tuple:
+    """Kernel launches of one call of ``fn`` under ``torch.profiler``, its
+    device time and its wall time under the profiler (ms)."""
+    b = kernel_breakdown(fn, top=0)
+    return b["launches"], b["device_ms"], b["wall_ms_under_profiler"]
 
 
 def compare_keypoints(f_card, f_cpu) -> dict:
@@ -2268,6 +2309,324 @@ def sfm_path() -> dict:
     return out
 
 
+# ------------------------------------------------------------- fusion CLI
+# fusion_cli_path: depth_to_reconstruction_torch.py's pipeline at the CLI's
+# defaults (ReconstructionConfig: the intrinsics above, --subsample 2,
+# --voxel-size 0.005) on sfm_path's scene: 8 views, so 8 padded pairs and 9
+# views of 518,400 rows (4,665,600 rows, the single-pass route).
+FUSION_VIEWS = SFM_FRAMES
+FUSION_TOL = dict(plane_m=1e-4, host_m=1e-4, chunk_m=1e-4,
+                  chunk_count_rel=1e-3,
+                  why="a voxel mean of points of one plane lies on that "
+                      "plane up to f32 round-off (coordinates up to 6 m: "
+                      "ulp 5e-7); the same rows summed in float64 on the "
+                      "host, and by the chunked route, agree to a few ulps "
+                      "of the sums of up to a few dozen rows; the outlier "
+                      "pass may move points on its threshold")
+CHUNK_SINGLE_ROWS = 4194304      # TXR_DENSE_SINGLE_ROWS of the chunked check
+
+
+class StageTimer:
+    """Brackets every call of some functions with CUDA events, so a run's
+    stages are timed on the device clock without a sync; ``ms()`` reads the
+    events after the run."""
+
+    def __init__(self):
+        self.events, self.outputs, self.inputs, self._saved = {}, {}, {}, []
+
+    def wrap(self, owner, attr: str, stage: str, keep_output=False,
+             keep_input=False):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            self.events.setdefault(stage, []).append((a, b))
+            if keep_output:
+                self.outputs.setdefault(stage, []).append(out)
+            if keep_input:
+                self.inputs.setdefault(stage, []).append((args, kwargs))
+            return out
+
+        self._saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: {"ms": sum(a.elapsed_time(b) for a, b in v),
+                    "calls": len(v)} for k, v in self.events.items()}
+
+
+def plane_distance(xyz_world: torch.Tensor) -> torch.Tensor:
+    """Distance (m) of world points to the nearer of the scene's two
+    planes (floor y = cam_height, wall z = wall_z)."""
+    p = SFM_SCENE
+    return torch.minimum((xyz_world[:, 1] - p["cam_height"]).abs(),
+                         (xyz_world[:, 2] - p["wall_z"]).abs())
+
+
+def host_voxel_means(rows: np.ndarray, voxel: float) -> np.ndarray:
+    """float64 per-voxel means of f32 rows keyed as the port keys them (f32
+    (xyz - min) / voxel, floored), in ascending voxel order."""
+    k = np.floor((rows - rows.min(0)) / np.float32(voxel)).astype(np.int64)
+    if k.max() >= 1 << 21:
+        raise AssertionError("host_voxel_means: extent beyond 2^21 voxels")
+    packed = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+    order = np.argsort(packed, kind="stable")
+    ps = packed[order]
+    starts = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1]])
+    sums = np.add.reduceat(rows[order].astype(np.float64), starts, axis=0)
+    cnt = np.diff(np.r_[starts, len(ps)])
+    return sums / cnt[:, None]
+
+
+def scan_inputs(flat: PointSet, voxel: float) -> tuple:
+    """The sorted columns and segment starts that voxel_downsample hands
+    the scan kernel for these rows."""
+    kx, ky, kz = _voxel_keys(flat.xyz, flat.mask, voxel)
+    perm = lexsort3(kx, ky, kz)
+    cols = tuple(c[perm] for c in _weighted_cols(flat))
+    sk = torch.stack([kx, ky, kz], 1)[perm]
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=sk.device),
+                        (sk[1:] != sk[:-1]).any(1)])
+    return cols, starts
+
+
+def global_cumsum_means(flat: PointSet, voxel: float) -> torch.Tensor:
+    """txr's route for the same reduce (``txr/ops/segment.py:68-80``): one
+    global f32 cumulative sum of the sorted rows, segment sums as
+    differences at the segment ends. A diagnostic, not the port's code."""
+    cols, starts = scan_inputs(flat, voxel)
+    last = torch.cat([starts[1:], starts.new_ones((1,))])
+    ends = torch.cumsum(torch.stack(cols, 1), 0, dtype=torch.float32)[last]
+    sums = ends - torch.cat([ends.new_zeros((1, 7)), ends[:-1]])
+    valid = sums[:, 6] > 0
+    return sums[valid, :3] / sums[valid, 6:7]
+
+
+def fusion_cli_path() -> dict:
+    """depth_to_reconstruction_torch.py's pipeline on the card: 8 views of
+    1080 x 1920 of sfm_path's scene, filled in as ``load_data`` would
+    (the machine has no image codec), ``reconstruct()`` and
+    ``save_reconstruction()``; poses and scales held to the scene's truth;
+    the dense stage on the true poses held to the true planes, to a
+    float64 host reduce and to the chunked route."""
+    dev = torch.device("cuda")
+    cfg = ReconstructionConfig()
+    if (cfg.fx, cfg.fy, cfg.cx, cfg.cy) != SFM_K:
+        raise AssertionError("the CLI's default intrinsics moved")
+    scene = two_plane_scene(SFM_H, SFM_W, SFM_K, FUSION_VIEWS, dev)
+    rel = scene["depth"] / SFM_SCENE["depth_div"]
+    images = list(scene["bgr"].cpu().numpy())
+    depths = list(rel.cpu().numpy())
+
+    def pipeline():
+        pipe = DepthToReconstructionPipeline(cfg)
+        pipe.images, pipe.depths = list(images), list(depths)
+        pipe.image_names = [f"view_{i:02d}.png" for i in range(len(images))]
+        return pipe
+
+    pipe = pipeline()
+    backend = pipe.detector.backend
+    if backend != "device" or pipe.device.type != "cuda":
+        raise AssertionError(f"the pipeline resolved to {backend} on "
+                             f"{pipe.device}")
+    from txr_torch.ops import grid_knn, scan, segment
+    import txr_torch.pipelines.fusion_pipeline as fp
+
+    timer = StageTimer()
+    timer.wrap(pipe.detector, "detect_batch", "features")
+    timer.wrap(fp, "_pairs_batch", "pairs")
+    timer.wrap(fp, "_scales_batch", "scales")
+    timer.wrap(fp, "_dense_merge_batch", "dense_merge", keep_input=True)
+    timer.wrap(fp, "backproject_views", "dense.backprojection")
+    timer.wrap(fp, "voxel_downsample", "dense.voxel_downsample",
+               keep_output=True)
+    timer.wrap(segment, "lexsort3", "dense.three_key_sort")
+    timer.wrap(scan, "segmented_cumsum_cols", "dense.scan", keep_input=True)
+    timer.wrap(grid_knn, "auto_cell", "dense.auto_cell")
+    timer.wrap(grid_knn, "grid_knn_mean_distance", "dense.grid_knn")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    narration = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(narration):
+            t0 = time.perf_counter()
+            points, colors, poses = pipe.reconstruct()
+            wall_s = time.perf_counter() - t0
+    finally:
+        timer.restore()
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    stages = timer.ms()
+    vox = timer.outputs["dense.voxel_downsample"][0]
+    n_voxels = int(vox.mask.sum())
+    if launches["segscan"] < 1:
+        raise AssertionError(f"fusion_cli_path launched no scan: {launches}")
+    if points is None or not np.isfinite(points).all() or len(points) < 1:
+        raise AssertionError("fusion_cli_path: no finite cloud")
+    with tempfile.TemporaryDirectory() as td:
+        out_ply = os.path.join(td, "reconstruction.ply")
+        with contextlib.redirect_stdout(io.StringIO()):
+            pipe.save_reconstruction(points, colors, out_ply)
+        ply_bytes = os.path.getsize(out_ply)
+        back, back_rgb = read_ply(out_ply)
+    if back.shape != points.shape or not np.allclose(back, points):
+        raise AssertionError("fusion_cli_path: the PLY does not read back")
+
+    # 1. poses and scales against the truth (SFM_TOL, as sfm_path)
+    R_true, t_dir = relative_truth(scene["R"], scene["t"])
+    pairs = []
+    for p in range(FUSION_VIEWS - 1):
+        (Ra, ta), (Rb, tb) = poses[p], poses[p + 1]
+        R_rel = Rb @ Ra.T
+        t_rel = tb - R_rel @ ta
+        cosang = float(np.clip(t_rel @ t_dir[p] / np.linalg.norm(t_rel),
+                               -1.0, 1.0))
+        pairs.append({"pair": [p, p + 1],
+                      "rot_err_deg": angle_deg(R_rel, R_true[p]),
+                      "t_dir_err_deg": float(np.degrees(np.arccos(cosang)))})
+    text = narration.getvalue()
+    avg = float(re.search(r"Average scale: ([0-9.]+)", text).group(1))
+    view_scales = [avg, avg] + [float(s) for s in
+                                re.findall(r"\(scale ([0-9.]+)\)", text)]
+    truth = SFM_SCENE["depth_div"] / SFM_SCENE["baseline"]
+    worst = {"rot_err_deg": max(r["rot_err_deg"] for r in pairs),
+             "t_dir_err_deg": max(r["t_dir_err_deg"] for r in pairs),
+             "scale_rel_err": max(abs(s / truth - 1) for s in view_scales),
+             "true_scale": truth}
+    if (len(poses) != FUSION_VIEWS or len(view_scales) != FUSION_VIEWS
+            or worst["rot_err_deg"] > SFM_TOL["rot_deg"]
+            or worst["t_dir_err_deg"] > SFM_TOL["t_dir_deg"]
+            or worst["scale_rel_err"] > SFM_TOL["scale_rel"]):
+        raise AssertionError(f"fusion_cli_path against the truth: {worst}, "
+                             f"{pairs}, scales {view_scales}")
+    # the output cloud in metric world coordinates (camera 0's frame in
+    # baseline units -> metres)
+    R0 = torch.from_numpy(scene["R"][0]).float().to(dev)
+    pw = (torch.from_numpy(points).to(dev) * SFM_SCENE["baseline"]) @ R0
+    out_near = float((plane_distance(pw) < 0.01).float().mean())
+
+    # 2. to 4.: the dense stage on the true poses and the metric scale
+    voxel = float(cfg.voxel_size)
+    args = (torch.stack([torch.from_numpy(d) for d in depths]).to(dev),
+            scene["bgr"], torch.from_numpy(scene["R"]).float().to(dev),
+            torch.from_numpy(scene["t"]).float().to(dev),
+            torch.full((FUSION_VIEWS,), SFM_SCENE["depth_div"], device=dev),
+            torch.ones(FUSION_VIEWS, dtype=torch.bool, device=dev))
+    cam = (cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.min_depth, cfg.max_depth,
+           cfg.subsample_factor)
+    flat, _ = backproject_views(*args, *cam)
+    single = voxel_downsample(flat, voxel)
+    means = single.xyz[single.mask]
+    off = plane_distance(means)
+    sp = SFM_SCENE
+    edge = (((means[:, 1] - sp["cam_height"]).abs() < voxel * 1.01)
+            & ((means[:, 2] - sp["wall_z"]).abs() < voxel * 1.01))
+    plane_err = float(off[~edge].max())
+    rows = flat.xyz[flat.mask].cpu().numpy()
+    host = host_voxel_means(rows, voxel)
+    host_err = float(np.abs(means.cpu().numpy() - host).max())
+    ref = global_cumsum_means(flat, voxel)
+    txr_route = {"max_err_vs_host_m": float(np.abs(ref.cpu().numpy()
+                                                   - host).max()),
+                 "median_err_vs_host_m": float(np.median(np.abs(
+                     ref.cpu().numpy() - host).max(1))),
+                 "max_off_plane_m": float(plane_distance(ref)[~edge].max()),
+                 "share_off_plane_over_1cm": float(
+                     (plane_distance(ref)[~edge] > 0.01).float().mean())}
+    # the scan kernel on the columns and starts reconstruct() gave it, then
+    # on the true poses' (long segments, every row kept)
+    scan_err = []
+    for case, (cols, starts) in (
+            [("reconstruct()", a) for a, _ in timer.inputs.pop("dense.scan")]
+            + [("true poses", scan_inputs(flat, voxel))]):
+        scan_err.append(compare(
+            "segscan", f"fusion_cli_path {case} N={starts.shape[0]} cols="
+            f"{len(cols)} segments={int(starts.sum())}",
+            torch.stack(segmented_cumsum_cols(cols, starts)),
+            segmented_cumsum(torch.stack(cols, 1), starts).t(), **SCAN_TOL))
+    del cols, starts
+    rows_per_view = -(-SFM_H // cam[-1]) * -(-SFM_W // cam[-1])
+    chunk_views = dense_chunk_views(CHUNK_SINGLE_ROWS, rows_per_view)
+    if (FUSION_VIEWS + 1) * rows_per_view <= CHUNK_SINGLE_ROWS:
+        raise AssertionError("the chunked check would not take the route")
+    chunked, _ = chunked_dense_voxel_merge(
+        depths, images, scene["R"], scene["t"],
+        np.full(FUSION_VIEWS, SFM_SCENE["depth_div"], np.float32),
+        np.ones(FUSION_VIEWS, bool), fx=cfg.fx, fy=cfg.fy, cx=cfg.cx,
+        cy=cfg.cy, min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+        subsample=cfg.subsample_factor, voxel_size=voxel,
+        chunk_views=chunk_views, device=dev)
+    same_voxels = int(chunked.mask.sum()) == means.shape[0]
+    chunk_err = float((chunked.xyz[chunked.mask] - means).abs().max()) \
+        if same_voxels else float("inf")
+    kw = dict(nb_neighbors=cfg.outlier_neighbors,
+              std_ratio=cfg.outlier_std_ratio)
+    n_single = int(remove_statistical_outliers_grid(single, None, **kw)
+                   .mask.sum())
+    n_chunked = int(remove_statistical_outliers_grid(chunked, None, **kw)
+                    .mask.sum())
+    count_rel = abs(n_chunked / n_single - 1)
+    dense = {"rows": int(flat.mask.numel()), "kept_rows": int(len(rows)),
+             "voxels": int(means.shape[0]), "edge_voxels": int(edge.sum()),
+             "max_off_plane_m": plane_err, "max_err_vs_host_m": host_err,
+             "chunk_views": chunk_views, "chunked_same_voxels": same_voxels,
+             "chunked_max_err_m": chunk_err,
+             "points_after_outliers": {"single": n_single,
+                                       "chunked": n_chunked},
+             "txr_route_diagnostic": txr_route, "scan_max_abs_err": scan_err}
+    if not (plane_err <= FUSION_TOL["plane_m"]
+            and host_err <= FUSION_TOL["host_m"] and same_voxels
+            and chunk_err <= FUSION_TOL["chunk_m"]
+            and count_rel <= FUSION_TOL["chunk_count_rel"]):
+        raise AssertionError(f"fusion_cli_path dense stage: {dense}")
+    del flat, single, chunked, means, ref
+
+    # launches and device time: the whole of reconstruct() once more on a
+    # fresh pipeline under the profiler (the card's busy share is its device
+    # time over the unprofiled run's wall), and the dense merge alone on
+    # the run's own inputs, by kernel
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_prof = kernel_breakdown(lambda: pipeline().reconstruct())
+    dense_args, dense_kwargs = timer.inputs["dense_merge"][0]
+    dense_prof = kernel_breakdown(
+        lambda: _dense_merge_batch(*dense_args, **dense_kwargs))
+    del dense_args, dense_kwargs
+    pairs_run = fp._pad_pow2(FUSION_VIEWS - 1)
+    out = {"phase": "fusion_cli_path", "input": [SFM_H, SFM_W],
+           "views": FUSION_VIEWS, "config": {
+               "voxel_size": voxel, "subsample": cfg.subsample_factor,
+               "K": list(SFM_K), "outlier_neighbors": cfg.outlier_neighbors,
+               "outlier_std_ratio": cfg.outlier_std_ratio},
+           "feature_backend": backend, "tolerance": FUSION_TOL,
+           "sfm_tolerance": SFM_TOL, "wall_s": wall_s,
+           "stages_ms": stages, "pairs": pairs, "view_scales": view_scales,
+           "worst": worst,
+           "rows_in": FUSION_VIEWS * rows_per_view,
+           "pairs_run": pairs_run,
+           "rows_in_padded": (pairs_run + 1) * rows_per_view,
+           "voxels": n_voxels, "points_out": int(len(points)),
+           "ply_bytes": ply_bytes,
+           "out_share_within_1cm_of_a_plane": out_near,
+           "dense_true_poses": dense,
+           "reconstruct_profiled": run_prof,
+           "dense_merge_profiled": dense_prof,
+           "device_busy_share": run_prof["device_ms"] / (wall_s * 1e3),
+           "peak_memory_bytes": peak, "launches": launches,
+           "launches_over_steps": 1, "ok": True}
+    emit(out)
+    return out
+
+
 def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
     """The depth error of the port's bf16 arithmetic: the default model
     (bf16, attention and tail kernels) against an f32 model carrying the
@@ -2485,11 +2844,11 @@ def main() -> int:
         rows = check(args.frames, gen)
         summary.extend(rows if isinstance(rows, list) else [rows])
         torch.cuda.empty_cache()
-    # row 3 carries both entries of the scan core; its launches are the
-    # fused reduce's, which is what the paths run
+    # row 3 carries both entries of the scan core: the model paths run the
+    # fused reduce, fusion_cli_path the standalone scan
     scan_row = next(k for k in summary if k["name"] == "segscan")
     scan_row["offset_reduce"] = check_offset_reduce(args.frames, gen)
-    scan_row["counter"] = "offset_reduce"
+    scan_row["counters"] = ["offset_reduce", "segscan"]
     torch.cuda.empty_cache()
     check_reference(gen)
     torch.cuda.empty_cache()
@@ -2511,20 +2870,27 @@ def main() -> int:
     bf16_vs_f32(args.frames, crun["int8"]["depth_vs_bf16"])
     srun = sfm_path()
     torch.cuda.empty_cache()
+    frun = fusion_cli_path()
+    torch.cuda.empty_cache()
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
             "odd_heads_path": orun, "depth_cli_path": crun,
-            "sfm_path": srun}
+            "sfm_path": srun, "fusion_cli_path": frun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
-        counter = k.get("counter", k["name"])
-        by_path = {name: r["launches"][counter] for name, r in runs.items()}
+        counters = k.get("counters", [k["name"]])
+        by_path = {name: sum(r["launches"][c] for c in counters)
+                   for name, r in runs.items()}
         k["launches_by_path"] = by_path
+        if len(counters) > 1:
+            k["launches_by_path_by_entry"] = {
+                c: {name: r["launches"][c] for name, r in runs.items()}
+                for c in counters}
         path = next((name for name, n in by_path.items() if n), "main_path")
         k["launches"] = by_path[path]
         k["launches_in"] = path
         k["launches_over_steps"] = runs[path]["launches_over_steps"]
         if k["launches"] < 1:
-            raise AssertionError(f"no path launched {counter}")
+            raise AssertionError(f"no path launched {counters}")
     emit({"phase": "device", "nvidia_smi_name_power_limit": smi})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -98,6 +98,21 @@ class TestNativeLibrary:
         assert pnat._build(str(target))
         assert [p.name for p in tmp_path.iterdir()] == [target.name]
 
+    def test_a_library_that_does_not_load_is_built_again(self, tmp_path,
+                                                         monkeypatch):
+        """A library newer than its source that this machine cannot load
+        (built elsewhere, against other codec libraries) is rebuilt."""
+        if pnat.get_lib() is None:
+            pytest.skip("no C++ toolchain")
+        target = tmp_path / "libtxr_torch_native.so"
+        target.write_bytes(b"not a shared object")
+        monkeypatch.setattr(pnat, "lib_path", lambda: str(target))
+        monkeypatch.setattr(pnat, "_lib", None)
+        monkeypatch.setattr(pnat, "_tried", False)
+        lib = pnat.get_lib()
+        assert lib is not None and lib.txr_has_jpeg() in (0, 1)
+        assert target.read_bytes()[:4] == b"\x7fELF"
+
     @pytest.mark.parametrize("with_rgb", [True, False])
     def test_compact(self, rng, with_rgb):
         xyz, rgb = _cloud(rng, 100)
@@ -390,6 +405,33 @@ def test_prefetch_source_equal_txr(frame_folder):
     early.close()                               # stops the worker
     early._thread.join(timeout=10)
     assert not early._thread.is_alive()
+
+
+class _ClosingSource(psrc.FolderSource):
+    """FolderSource that records, when closed, whether its prefetch worker
+    was still running."""
+
+    owner = None
+    worker_alive_at_close = None
+
+    def close(self):
+        self.worker_alive_at_close = self.owner._thread.is_alive()
+        super().close()
+
+
+def test_prefetch_close_stops_the_worker_every_time(frame_folder):
+    """close() after one next() at depth 1 stops the worker in every one of
+    200 tries (the worker used to block on a full queue after the drain),
+    and closes the inner source only after the worker has stopped."""
+    for _ in range(200):
+        inner = _ClosingSource(frame_folder)
+        early = psrc.PrefetchSource(inner, depth=1)
+        inner.owner = early
+        next(early)
+        early.close()
+        early._thread.join(timeout=2)
+        assert not early._thread.is_alive()
+        assert inner.worker_alive_at_close is False
 
 
 def test_make_source(frame_folder):

@@ -2,10 +2,10 @@
 
 The package mirrors ``txr``'s layout module for module (``core``, ``ops``,
 ``models``, ``fusion``, ``geometry``, ``io``, ``pipelines``, ``ros2``,
-``_native``) and
+``utils``, ``_native``) and
 imports ``torch``, ``numpy`` and the standard library only (OpenCV and
-safetensors at first use where a host path needs them; rclpy, optional, in
-``ros2``). Entry points
+safetensors at first use where a host path needs them, Plotly at first use
+in ``utils``; rclpy, optional, in ``ros2``). Entry points
 run on a CUDA device unless the caller passes ``device="cpu"``; the
 hand-written Hopper kernels under ``csrc/`` are built at first CUDA use (see
 ``txr_torch._cuda``) and the native host library at first host I/O (see

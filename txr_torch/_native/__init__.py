@@ -89,7 +89,14 @@ def get_lib():
         try:
             lib = ctypes.CDLL(path)
         except OSError:
-            return None
+            # a library built on another machine (a copied tree) may link
+            # codec libraries this one lacks: build it here and load again
+            if not _build(path):
+                return None
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                return None
         lib.txr_write_ply.restype = ctypes.c_int
         lib.txr_write_ply.argtypes = [
             ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]

@@ -220,6 +220,8 @@ class PrefetchSource(ImageSource):
     host I/O overlaps device compute (SURVEY §2.6 'host-pipeline')."""
 
     _SENTINEL = object()
+    _PUT_POLL_S = 0.05     # how often a blocked put looks at the stop flag
+    _JOIN_S = 5.0          # how long close() waits for the worker
 
     def __init__(self, inner: ImageSource, depth: int = 4):
         self.inner = inner
@@ -230,14 +232,24 @@ class PrefetchSource(ImageSource):
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _put(self, item) -> bool:
+        """Put ``item`` unless close() stops the worker first; a full queue
+        never blocks the worker past a stop."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=self._PUT_POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
     def _worker(self):
         try:
             for frame in self.inner:
-                if self._stop.is_set():
+                if self._stop.is_set() or not self._put(frame):
                     return
-                self.q.put(frame)
         finally:
-            self.q.put(self._SENTINEL)
+            self._put(self._SENTINEL)
 
     def __next__(self) -> Frame:
         item = self.q.get()
@@ -246,13 +258,16 @@ class PrefetchSource(ImageSource):
         return item
 
     def close(self) -> None:
+        """Stop the worker, then close the inner source: the worker never
+        reads from a source that is being closed."""
         self._stop.set()
-        # drain so the worker can observe the stop flag
+        # drain so that a worker blocked on a full queue sees the flag
         try:
             while True:
                 self.q.get_nowait()
         except queue.Empty:
             pass
+        self._thread.join(timeout=self._JOIN_S)
         self.inner.close()
 
 
