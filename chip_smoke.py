@@ -77,12 +77,28 @@ columns and starts ``reconstruct()`` handed it (and on the true poses').
 Each stage is timed between CUDA events; launches and the card's busy
 share come from one more ``reconstruct()`` under the profiler.
 
+``enhanced_cli_path`` runs ``depth_enhanced_reconstruction_torch.py``'s
+pipeline (``DepthEnhancedReconstruction``) on 8 views of the same scene put
+straight into ``rec.images``. Run A is the CLI's default: ViT-L v2 bf16
+with seeded weights (attention and tail kernels), the device's hybrid
+features (SIFT, ORB, LSD with the scan kernel at 8 columns once a frame,
+Canny), host matching, fundamental RANSAC + ``pair_step`` per pair, the
+scales, and the voxel merge (the scan kernel once more) into a PLY that is
+read back; it must launch attention >= 24, tail >= 1 and segscan 9 times,
+and prints its stages (events), each feature op on one frame, its peak
+memory and one profiled ``reconstruct()``. Run B takes the scene's depth
+as the model and bundle adjustment on: poses and scales are held to the
+truth (``SFM_TOL``) and the RMS history may not rise. Then the scan kernel
+at 8 columns is held to its plain version on the columns and starts LSD
+handed it for one frame and timed beside its bound, and that frame's LSD,
+Canny, ORB and SIFT on the card are held against the CPU.
+
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
 ``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
-then the ``kernels``
-summary and, last, the verdict
+``enhanced_cli_path``, ``script`` (the whole run's wall), then the
+``kernels`` summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
 code is non-zero; nothing runs on the CPU and no kernel is swapped for its
 plain version. Without a CUDA device the script exits with code 2 and
@@ -165,7 +181,11 @@ from txr_torch.ops.scan import (offset_reduce, scan_geometry,
                                 segmented_cumsum_cols)
 from txr_torch.ops.segment import segmented_cumsum
 from txr_torch.geometry.epipolar import essential_ransac
-from txr_torch.geometry.features import SIFTDetector
+from txr_torch.geometry.features import SIFTDetector, bgr_to_gray
+from txr_torch.ops.canny import canny
+from txr_torch.ops.lsd import lsd_lines
+from txr_torch.ops.orb import orb_features
+from txr_torch.ops.sift import sift_features
 from txr_torch.geometry.homography import homography_ransac, transfer_error
 from txr_torch.geometry.scale import clamp_scale
 from txr_torch.ops.matching import match_l2_ratio
@@ -2000,13 +2020,16 @@ def kernel_breakdown(fn, top: int = 12) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    # the raw device events: building the profiler's event tree
+    # (``prof.events()``) is slow at hundreds of thousands of launches
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        row = by_name.setdefault(e.key[:90], {"name": e.key[:90],
-                                              "calls": 0, "ms": 0.0})
+        name = e.name()[:90]
+        row = by_name.setdefault(name, {"name": name, "calls": 0,
+                                        "ms": 0.0})
         row["calls"] += 1
-        row["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        row["ms"] += e.duration_ns() / 1e6
     rows = sorted(by_name.values(), key=lambda r: -r["ms"])
     return {"launches": sum(r["calls"] for r in rows),
             "device_ms": sum(r["ms"] for r in rows),
@@ -2627,6 +2650,314 @@ def fusion_cli_path() -> dict:
     return out
 
 
+# ------------------------------------------------------ enhanced_cli_path
+
+ENH_VIEWS = 8
+ENH_SCAN_TOL = dict(rtol=1e-5, col_share=1e-5,
+                    why="per column, 1e-5 of the column's largest "
+                        "magnitude plus 1e-5 relative: f32 sums of a "
+                        "component's rows taken in another order (counts "
+                        "and centred first moments are integers, exact; "
+                        "second moments reach about 1e5, the cos / sin "
+                        "sums the component's size)")
+BA_RISE_PX = 1e-4   # tests/test_bundle_adjustment.py's slack at convergence
+LSD_CARD_TOL = dict(endpoint_px=1e-2, matched_share=0.99,
+                    why="the card's blur, gradients and angles round in "
+                        "another order than the CPU's, so a pixel at the "
+                        "magnitude or angle threshold may join another "
+                        "component: the same line count, and 99 % of the "
+                        "lines within 1e-2 px of one on the CPU")
+
+
+class SceneDepth:
+    """The scene's relative depth as a depth model (the JAX tests'
+    ``FakeDepthModel`` pattern): metric depth over ``depth_div``."""
+
+    def __init__(self, rel: np.ndarray):
+        self.rel = rel
+
+    def infer_batch(self, images, intrinsics=None):
+        if len(images) != len(self.rel):
+            raise AssertionError("SceneDepth: another batch than the scene")
+        return self.rel.copy()
+
+
+def enh_truth(scene: dict, poses: list, text: str) -> tuple:
+    """Per pair rotation and translation-direction error of the
+    pipeline's poses against the scene, and its view scales (parsed from
+    the narration) against the true scale."""
+    R_true, t_dir = relative_truth(scene["R"], scene["t"])
+    pairs = []
+    for p in range(len(poses) - 1):
+        (Ra, ta), (Rb, tb) = poses[p], poses[p + 1]
+        R_rel = np.asarray(Rb) @ np.asarray(Ra).T
+        t_rel = np.asarray(tb) - R_rel @ np.asarray(ta)
+        c = float(np.clip(t_rel @ t_dir[p] / np.linalg.norm(t_rel), -1, 1))
+        pairs.append({"pair": [p, p + 1],
+                      "rot_err_deg": angle_deg(R_rel, R_true[p]),
+                      "t_dir_err_deg": float(np.degrees(np.arccos(c)))})
+    s0 = float(re.search(r"Depth scale estimate: ([0-9.]+)", text).group(1))
+    scales = [s0, s0] + [float(s) for s in
+                         re.findall(r"pose chained \(scale ([0-9.]+)\)",
+                                    text)]
+    truth = SFM_SCENE["depth_div"] / SFM_SCENE["baseline"]
+    worst = {"rot_err_deg": max(r["rot_err_deg"] for r in pairs),
+             "t_dir_err_deg": max(r["t_dir_err_deg"] for r in pairs),
+             "scale_rel_err": max(abs(s / truth - 1) for s in scales),
+             "true_scale": truth, "views": len(poses),
+             "scales": len(scales)}
+    return pairs, scales, worst
+
+
+def enh_reconstruct(rec, out_dir: str, timer=None) -> tuple:
+    """``rec.reconstruct(out_dir)`` with its narration captured; returns
+    (result, narration, wall seconds)."""
+    narration = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(narration):
+            t0 = time.perf_counter()
+            result = rec.reconstruct(output_dir=out_dir)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        if timer is not None:
+            timer.restore()
+    return result, narration.getvalue(), wall
+
+
+def check_lsd_scan(cols: tuple, starts: torch.Tensor, launches: int) -> dict:
+    """The scan kernel at 8 columns on the columns and starts LSD handed it
+    for one frame: each column against the plain version, repeatability,
+    the geometry, and the time in interleaved rounds beside the bound."""
+    require_geometry("segscan", kernels.lib().txr_segscan_geometry,
+                     (SCAN_TILE, SCAN_THREADS, SCAN_ITEMS, SCAN_MAX_COLS))
+    n, d = starts.shape[0], len(cols)
+    if d != 8:
+        raise AssertionError(f"LSD handed the scan {d} columns, not 8")
+    got = torch.stack(segmented_cumsum_cols(cols, starts))
+    want = segmented_cumsum(torch.stack(cols, 1), starts).t()
+    errs = []
+    for c in range(d):
+        scale = float(want[c].abs().max())
+        errs.append(compare(
+            "segscan", f"enhanced_cli_path LSD column {c} of 8, N={n}, "
+            f"segments={int(starts.sum())}", got[c], want[c],
+            atol=ENH_SCAN_TOL["col_share"] * max(scale, 1.0),
+            rtol=ENH_SCAN_TOL["rtol"], why=ENH_SCAN_TOL["why"]))
+    require_repeatable("segscan",
+                       lambda: torch.stack(segmented_cumsum_cols(cols,
+                                                                 starts)))
+    spread = time_spread(
+        {"kernel": lambda: segmented_cumsum_cols(cols, starts),
+         "plain": lambda: segmented_cumsum(torch.stack(cols, 1), starts)},
+        runs=10)
+    nbytes = n * (8 * 4 + 8 * 4 + 1)
+    return {"columns": d, "rows": n, "segments": int(starts.sum()),
+            "max_abs_err": max(errs), "ms": spread["kernel"]["median"],
+            "ms_spread": spread["kernel"],
+            "plain_ms": spread["plain"]["median"],
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "launches_on_path": launches,
+            "tolerance": ENH_SCAN_TOL}
+
+
+def card_against_cpu(gray: torch.Tensor) -> dict:
+    """One frame's LSD, Canny, ORB and SIFT on the card against the port on
+    the CPU (same grey frame)."""
+    cpu = gray.cpu()
+    a, b = lsd_lines(gray), lsd_lines(cpu)
+    la, lb = a.lines[a.mask].cpu().double(), b.lines[b.mask].double()
+    matched, worst = 0, 0.0
+    if len(la) and len(lb):
+        dist = (la[:, None, :] - lb[None, :, :]).abs().amax(-1).min(1)[0]
+        matched = int((dist < LSD_CARD_TOL["endpoint_px"]).sum())
+        worst = float(dist.max())
+    lsd = {"lines_card": len(la), "lines_cpu": len(lb), "matched": matched,
+           "max_endpoint_err_px": worst, "tolerance": LSD_CARD_TOL}
+    if len(la) != len(lb) or matched < LSD_CARD_TOL["matched_share"] * len(la):
+        raise AssertionError(f"LSD on the card against the CPU: {lsd}")
+    edges_card, edges_cpu = canny(gray).cpu(), canny(cpu)
+    differ = int((edges_card != edges_cpu).sum())
+    if differ:
+        raise AssertionError(f"Canny: {differ} pixels differ between the "
+                             "card and the CPU")
+    oa, ob = orb_features(gray), orb_features(cpu)
+    ua, ub = oa.uv[oa.mask].cpu().double(), ob.uv[ob.mask].double()
+    near = torch.cdist(ua, ub).min(1)[0] < 1e-3 if len(ua) and len(ub) \
+        else torch.zeros(0, dtype=torch.bool)
+    sa = sift_features(gray, capacity=3072, contrast_threshold=0.02)
+    sb = sift_features(cpu, capacity=3072, contrast_threshold=0.02)
+    sift = compare_keypoints(sa, sb)
+    return {"lsd": lsd, "canny_pixels_differing": differ,
+            "canny_edge_pixels": int((edges_cpu > 0).sum()),
+            "orb": {"valid_card": len(ua), "valid_cpu": len(ub),
+                    "card_keypoints_without_a_cpu_one_within_1e-3_px":
+                        int((~near).sum())},
+            "sift": sift}
+
+
+def feature_stage_ms(gray: torch.Tensor) -> dict:
+    """Each feature stage of the hybrid detector on one frame, between CUDA
+    events (median of 3 after a warm-up)."""
+    return {
+        "sift": time_ms(lambda: sift_features(gray, capacity=3072,
+                                              contrast_threshold=0.02), 3),
+        "orb": time_ms(lambda: orb_features(gray, capacity=2048,
+                                            n_levels=8), 3),
+        "lsd": time_ms(lambda: lsd_lines(gray), 3),
+        "canny": time_ms(lambda: canny(gray, 50.0, 150.0), 3)}
+
+
+def enhanced_cli_path() -> dict:
+    """depth_enhanced_reconstruction_torch.py's pipeline on the card: 8
+    views of 1080 x 1920 of sfm_path's scene put straight into
+    ``rec.images`` (the machine has no image codec). Run A: the CLI's
+    default (ViT-L v2 bf16, seeded weights; ``auto`` features, which are
+    the device's; voxel 0.005, subsample 4), its launches, stages and one
+    profiled ``reconstruct()``. Run B: the scene's depth as the depth model
+    and bundle adjustment on, held to the truth (``SFM_TOL``). Then the
+    scan kernel at 8 columns on LSD's own inputs, and one frame's features
+    on the card against the CPU."""
+    import txr_torch.ops.lsd as lsd_mod
+    import txr_torch.pipelines.enhanced_pipeline as ep
+    from txr_torch.ops import scan
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    dev = torch.device("cuda")
+    fx, fy, cx, cy = SFM_K
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+    scene = two_plane_scene(SFM_H, SFM_W, SFM_K, ENH_VIEWS, dev)
+    images = list(scene["bgr"].cpu().numpy())
+    rel = (scene["depth"] / SFM_SCENE["depth_div"]).cpu().numpy()
+    model = DepthAnythingModel("v2", "vitl")
+    part("scene_and_model")
+
+    def pipeline(**kw):
+        rec = ep.DepthEnhancedReconstruction(K, **kw)
+        rec.images = list(images)
+        rec.image_names = [f"view_{i:02d}.png" for i in range(ENH_VIEWS)]
+        return rec
+
+    # ---- Run A: the CLI's default at full width
+    rec = pipeline(depth_model=model)
+    backend = rec.detector.backend
+    if backend != "device" or rec.device.type != "cuda":
+        raise AssertionError(f"the pipeline resolved to {backend} on "
+                             f"{rec.device}")
+    timer = StageTimer()
+    timer.wrap(rec, "estimate_all_depths", "depth")
+    timer.wrap(rec, "detect_all_features", "features")
+    timer.wrap(rec, "_match_pair_host", "match (host)")
+    timer.wrap(ep, "_enh_pairs_batch", "pairs")
+    timer.wrap(ep, "_enh_scales_batch", "scales")
+    timer.wrap(ep, "_enh_dense_merge", "merge")
+    timer.wrap(rec, "_save_pointcloud", "write")
+    timer.wrap(lsd_mod, "segmented_cumsum_cols", "lsd scan",
+               keep_input=True)
+    timer.wrap(scan, "segmented_cumsum_cols", "merge scan")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as td:
+        result, text, wall_s = enh_reconstruct(rec, td, timer)
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if result is None:
+            raise AssertionError(f"enhanced_cli_path run A gave no result: "
+                                 f"{text[-2000:]}")
+        points, colors, poses = result
+        back, _ = read_ply(os.path.join(td, "reconstruction.ply"))
+    if back.shape != points.shape or not np.allclose(back, points,
+                                                     atol=1e-6):
+        raise AssertionError("enhanced_cli_path: the PLY does not read back")
+    if not np.isfinite(points).all() or len(points) < 1:
+        raise AssertionError("enhanced_cli_path: no finite cloud")
+    stages = timer.ms()
+    expect = {"segscan": ENH_VIEWS + 1}
+    if (launches["attention"] < 24 or launches["dpt_tail"] < 1
+            or launches["segscan"] != expect["segscan"]
+            or any(n for k, n in launches.items()
+                   if k not in ("attention", "dpt_tail", "segscan"))):
+        raise AssertionError(f"enhanced_cli_path launched {launches}; "
+                             "attention >= 24, dpt_tail >= 1, segscan 9 "
+                             "(LSD once a frame, the merge once)")
+    lsd_inputs = timer.inputs.pop("lsd scan")
+    raw = [int(m) for m in re.findall(r"RANSAC-F inliers \(pair \d+\): "
+                                      r"\d+/(\d+)", text)]
+    inliers = [int(m) for m in re.findall(r"RANSAC-F inliers \(pair \d+\): "
+                                          r"(\d+)/", text)]
+    part("run_a")
+    gray0 = bgr_to_gray(scene["bgr"][0])
+    feature_ms = feature_stage_ms(gray0)
+    with tempfile.TemporaryDirectory() as td, \
+            contextlib.redirect_stdout(io.StringIO()):
+        prof = kernel_breakdown(lambda: pipeline(
+            depth_model=model).reconstruct(output_dir=td))
+    part("feature_ops_and_profiled_run")
+    run_a = {"wall_s": wall_s, "stages_ms": stages,
+             "feature_stages_one_frame_ms": feature_ms,
+             "peak_memory_bytes": peak, "launches": launches,
+             "points_out": int(len(points)), "poses": len(poses),
+             "raw_matches_per_pair": raw, "ransac_f_inliers": inliers,
+             "reconstruct_profiled": prof,
+             "device_busy_share": prof["device_ms"] / (wall_s * 1e3),
+             "narration_tail": text.splitlines()[-3:]}
+
+    # ---- Run B: against the truth, with bundle adjustment
+    rec_b = pipeline(depth_model=SceneDepth(rel), use_ba=True)
+    with tempfile.TemporaryDirectory() as td:
+        result_b, text_b, wall_b = enh_reconstruct(rec_b, td)
+    part("run_b")
+    if result_b is None:
+        raise AssertionError(f"enhanced_cli_path run B gave no result: "
+                             f"{text_b[-2000:]}")
+    pts_b, _, poses_b = result_b
+    pairs_b, scales_b, worst_b = enh_truth(scene, poses_b, text_b)
+    hist = [float(h) for h in rec_b.ba_history]
+    # the RMS may not rise by more than f32 round-off at convergence
+    rises = [b - a for a, b in zip(hist, hist[1:]) if b > a + BA_RISE_PX]
+    R0 = torch.from_numpy(scene["R"][0]).float().to(dev)
+    pw = (torch.from_numpy(pts_b).to(dev) * SFM_SCENE["baseline"]) @ R0
+    near = float((plane_distance(pw) < 0.01).float().mean())
+    run_b = {"wall_s": wall_b, "pairs": pairs_b, "view_scales": scales_b,
+             "worst": worst_b, "ba_rms_history": hist,
+             "ba_rises": rises, "points_out": int(len(pts_b)),
+             "out_share_within_1cm_of_a_plane": near}
+    if (worst_b["views"] != ENH_VIEWS or worst_b["scales"] != ENH_VIEWS
+            or worst_b["rot_err_deg"] > SFM_TOL["rot_deg"]
+            or worst_b["t_dir_err_deg"] > SFM_TOL["t_dir_deg"]
+            or worst_b["scale_rel_err"] > SFM_TOL["scale_rel"]
+            or rises or hist[-1] > hist[0] + BA_RISE_PX):
+        raise AssertionError(f"enhanced_cli_path run B: {run_b}")
+
+    # ---- the scan kernel at 8 columns on LSD's inputs, one frame
+    (cols, starts), _ = lsd_inputs[0]
+    del lsd_inputs
+    scan8 = check_lsd_scan(cols, starts, launches["segscan"] - 1)
+    del cols, starts
+    part("scan_8_columns")
+    parity = card_against_cpu(gray0)
+    part("card_against_cpu")
+    out = {"phase": "enhanced_cli_path", "input": [SFM_H, SFM_W],
+           "views": ENH_VIEWS, "config": {
+               "voxel_size": rec.voxel_size, "subsample": rec.subsample,
+               "K": list(SFM_K), "model": "v2/vitl bf16 seeded",
+               "match_capacity": ep.MATCH_CAPACITY},
+           "feature_backend": backend, "sfm_tolerance": SFM_TOL,
+           "run_a": run_a, "run_b": run_b, "scan_8_columns": scan8,
+           "card_against_cpu": parity, "launches": launches,
+           "launches_over_steps": 1,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "phase_parts_s": parts, "ok": True}
+    emit(out)
+    return out
+
+
 def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
     """The depth error of the port's bf16 arithmetic: the default model
     (bf16, attention and tail kernels) against an f32 model carrying the
@@ -2799,6 +3130,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
 
     # the port's f32 paths have no matmul, but any f32 comparison made here
     # must not run in TF32
@@ -2872,9 +3204,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     frun = fusion_cli_path()
     torch.cuda.empty_cache()
+    erun = enhanced_cli_path()
+    torch.cuda.empty_cache()
+    # row 3's third entry: the scan at 8 columns on LSD's inputs
+    scan_row["lsd_8_columns"] = erun["scan_8_columns"]
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
             "odd_heads_path": orun, "depth_cli_path": crun,
-            "sfm_path": srun, "fusion_cli_path": frun}
+            "sfm_path": srun, "fusion_cli_path": frun,
+            "enhanced_cli_path": erun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counters = k.get("counters", [k["name"]])
@@ -2892,6 +3229,7 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"no path launched {counters}")
     emit({"phase": "device", "nvidia_smi_name_power_limit": smi})
+    emit({"phase": "script", "wall_s": time.perf_counter() - t_script})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

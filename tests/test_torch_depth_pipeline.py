@@ -47,7 +47,18 @@ from txr_torch.models.dpt import DPTConfig
 from txr_torch.models.vit import ViTConfig
 from txr_torch.pipelines import depth_pipeline as ppipe
 
+from test_torch_io import private_txr_native  # noqa: E402
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def txr_native_of_this_worker(tmp_path_factory):
+    """``txr``'s native library, built for this module alone: ``txr``'s
+    in-place build (``txr/_native/__init__.py:44-58``) races other test
+    workers (see ``test_torch_io.py:private_txr_native``)."""
+    with private_txr_native(tmp_path_factory.mktemp("txr_native")):
+        yield
 
 H, W, FRAMES = 48, 64, 12
 VIT = dict(hidden_size=32, num_layers=2, num_heads=2, pos_embed_size=5,

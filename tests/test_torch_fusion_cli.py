@@ -56,11 +56,21 @@ from txr_torch.geometry import homography as th  # noqa: E402
 from txr_torch.geometry.epipolar import sample_indices  # noqa: E402
 from txr_torch.ops import voxel as pvox  # noqa: E402
 from txr_torch.pipelines import fusion_pipeline as tfp  # noqa: E402
+from test_torch_io import private_txr_native  # noqa: E402
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 HYP = 1024
 ROWS = 4096                   # the pipelines' feature capacity
+
+
+@pytest.fixture(scope="module", autouse=True)
+def txr_native_of_this_worker(tmp_path_factory):
+    """``txr``'s native library, built for this module alone: ``txr``'s
+    in-place build (``txr/_native/__init__.py:44-58``) races other test
+    workers (see ``test_torch_io.py:private_txr_native``)."""
+    with private_txr_native(tmp_path_factory.mktemp("txr_native")):
+        yield
 
 
 def T(a):

@@ -58,7 +58,11 @@ def test_package_has_the_slice_modules():
             "txr_torch.ops.voxel", "txr_torch.ops.outlier",
             "txr_torch.ops.grid_knn", "txr_torch.fusion.pointcloud",
             "txr_torch.fusion.chunked_merge", "txr_torch.utils",
-            "txr_torch.utils.visualize"}
+            "txr_torch.utils.visualize", "txr_torch.ops.canny",
+            "txr_torch.ops.orb", "txr_torch.ops.lsd",
+            "txr_torch.geometry.hybrid",
+            "txr_torch.geometry.bundle_adjustment",
+            "txr_torch.pipelines.enhanced_pipeline"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
@@ -149,10 +153,34 @@ def test_fusion_cli_imports_the_port_alone():
     assert "clean" in r.stdout
 
 
+def test_enhanced_cli_imports_the_port_alone():
+    """Importing the enhanced CLI, parsing its flags and importing its
+    pipeline loads neither JAX, ``txr``, OpenCV nor Plotly, and builds
+    nothing."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('cli', "
+        "'depth_enhanced_reconstruction_torch.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "mod.build_parser().parse_args(['--ba', '--device-features'])\n"
+        "import txr_torch._cuda as k, txr_torch._native as n\n"
+        "import txr_torch.pipelines.enhanced_pipeline, txr_torch.utils\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'txr', 'cv2', 'plotly'))\n"
+        "assert not bad, bad\n"
+        "assert k._lib is None and n._lib is None and not n._tried\n"
+        "print('clean')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "depth_processor_torch.py",
-       ROOT / "depth_to_reconstruction_torch.py"]))
+       ROOT / "depth_to_reconstruction_torch.py",
+       ROOT / "depth_enhanced_reconstruction_torch.py"]))
 def test_source_imports_no_jax_flax_txr(path):
     text = (ROOT / path).read_text()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|txr)(?:[.\s]|$)",
@@ -190,7 +218,7 @@ def test_every_kernel_has_a_launch_count():
 
 @pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd",
                                   "attention_boundmax", "offset_map_insert",
-                                  "voxel_downsample"])
+                                  "voxel_downsample", "lsd_lines"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -217,6 +245,10 @@ def test_cpu_tensors_never_reach_a_kernel(call):
 
         voxel_downsample(PointSet.from_numpy(np.eye(3, dtype=np.float32),
                                              device="cpu"), 0.5)
+    elif call == "lsd_lines":
+        from txr_torch.ops.lsd import lsd_lines
+
+        lsd_lines(torch.zeros((12, 16), dtype=torch.uint8))
     elif call == "conv3x3":
         conv3x3_stripe(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8),
                        torch.ones(8))

@@ -10,10 +10,12 @@ setting ``txr``'s module attributes as ``tests/test_depth_pipeline.py``
 does.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
 import sqlite3
+import subprocess
 import sys
 
 import numpy as np
@@ -46,6 +48,50 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_rtabmap_db import make_calib_blob, rtabmap_db  # noqa: E402,F401
 
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def private_txr_native(tmp_dir):
+    """Point ``txr._native`` at a copy of its library that this worker built
+    alone, and restore its module state afterwards.
+
+    ``txr``'s loader (``txr/_native/__init__.py:44-58``) compiles in place,
+    straight to the final ``.so`` with no temporary name, and gives up for
+    the rest of the process when that file does not load. A fresh tree has
+    no library, so when several test workers reach it at once one of them
+    can load a half-written file and see ``txr``'s side as None. Here the
+    same source is compiled with the same four link variants under a
+    temporary name and renamed into place, as the port's own loader does;
+    ``txr/`` itself is left as it is."""
+    path = os.path.join(str(tmp_dir), "libtxr_native.so")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp,
+            tnat._SRC]
+    jpeg, png = ["-DTXR_HAVE_JPEG", "-ljpeg"], ["-DTXR_HAVE_PNG", "-lpng"]
+    for flags in (jpeg + png, jpeg, png, []):
+        try:
+            subprocess.run(base + flags, check=True, capture_output=True,
+                           timeout=120)
+        except (subprocess.CalledProcessError, FileNotFoundError,
+                subprocess.TimeoutExpired):
+            continue
+        os.replace(tmp, path)
+        break
+    saved = tnat._LIB, tnat._lib, tnat._tried
+    tnat._LIB, tnat._lib, tnat._tried = path, None, False
+    try:
+        yield
+    finally:
+        tnat._LIB, tnat._lib, tnat._tried = saved
+
+
+@pytest.fixture(scope="module", autouse=True)
+def txr_native_of_this_worker(tmp_path_factory):
+    """``txr``'s native library, built for this module alone (see
+    ``private_txr_native``: ``txr``'s in-place build races other
+    workers)."""
+    with private_txr_native(tmp_path_factory.mktemp("txr_native")):
+        yield
 
 
 @pytest.fixture()

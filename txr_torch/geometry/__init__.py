@@ -1,4 +1,5 @@
-"""Two-view geometry of the port (the counterpart of ``txr.geometry``)."""
+"""Two-view geometry of the port (the counterpart of ``txr.geometry``),
+with the hybrid features and bundle adjustment of the enhanced CLI."""
 
 from txr_torch.geometry.epipolar import (
     normalize_transform,
@@ -17,6 +18,13 @@ from txr_torch.geometry.scale import (
     clamp_scale,
     ema_scale,
 )
+from txr_torch.geometry.bundle_adjustment import (BAProblem, build_problem,
+                                                  bundle_adjust)
+from txr_torch.geometry.hybrid import (DepthGuidedMatcher,
+                                       HybridFeatureDetector,
+                                       HybridFeatures,
+                                       generate_dense_correspondences,
+                                       match_line_endpoints)
 
 __all__ = [
     "normalize_transform",
@@ -34,4 +42,12 @@ __all__ = [
     "estimate_scale",
     "clamp_scale",
     "ema_scale",
+    "BAProblem",
+    "build_problem",
+    "bundle_adjust",
+    "DepthGuidedMatcher",
+    "HybridFeatureDetector",
+    "HybridFeatures",
+    "generate_dense_correspondences",
+    "match_line_endpoints",
 ]

@@ -8,8 +8,9 @@ machine need not have it), ``"device"`` runs the port's own CLAHE + SIFT
 matching is one product on the device (``ops/matching.py``).
 
 Fixed-capacity contract: every detector returns exactly ``capacity`` rows
-with a validity mask. ``ORBDetector`` is not ported yet (it comes with
-``ops/orb.py``).
+with a validity mask. ``ORBDetector`` has the same two backends (OpenCV's
+ORB, or ``ops/orb.py`` on the device); their descriptors come from
+different BRIEF patterns and must not be matched against each other.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from txr_torch.io.opencv import cv2_or_none, require_cv2
 from txr_torch.ops.clahe import clahe
 from txr_torch.ops.matching import (match_hamming_ratio, match_l2_ratio,
                                     unpack_bits)
+from txr_torch.ops.orb import orb_features
 from txr_torch.ops.sift import sift_features
 
 
@@ -112,18 +114,8 @@ class SIFTDetector:
                 self.clahe = cv2.createCLAHE(clipLimit=2.0,
                                              tileGridSize=(8, 8))
 
-    def _gray_u8(self, image) -> torch.Tensor:
-        """uint8 grey on the device from a BGR or grey image (numpy or
-        tensor); other dtypes are clipped to 0..255 and truncated."""
-        img = torch.as_tensor(np.asarray(image)) \
-            if not isinstance(image, torch.Tensor) else image
-        img = img.to(self.device)
-        if img.dtype != torch.uint8:
-            img = torch.clamp(img, 0, 255).to(torch.uint8)
-        return bgr_to_gray(img) if img.ndim == 3 else img
-
-    def _detect_device(self, gray_u8: torch.Tensor) -> Features:
-        g = clahe(gray_u8, 2.0, 8) if self.use_clahe else gray_u8
+    def _detect_device(self, gray: torch.Tensor) -> Features:
+        g = clahe(gray, 2.0, 8) if self.use_clahe else gray
         f = sift_features(g, capacity=self.capacity,
                           contrast_threshold=self.contrast_threshold,
                           edge_threshold=float(self.edge_threshold),
@@ -151,7 +143,7 @@ class SIFTDetector:
     def detect(self, bgr) -> Features:
         """Features of one (H, W, 3) BGR or (H, W) grey image."""
         if self.backend == "device":
-            return self._detect_device(self._gray_u8(bgr))
+            return self._detect_device(gray_u8(bgr, self.device))
         return self._detect_cv2(bgr)
 
     @torch.no_grad()
@@ -160,6 +152,60 @@ class SIFTDetector:
         device backend runs the frames one at a time (as ``txr``'s
         ``lax.map``), so peak memory stays at one frame's pyramid."""
         return [self.detect(im) for im in images]
+
+
+def gray_u8(image, device: torch.device) -> torch.Tensor:
+    """uint8 grey on ``device`` from a BGR or grey image (numpy or tensor);
+    other dtypes are clipped to 0..255 and truncated."""
+    img = image if isinstance(image, torch.Tensor) \
+        else torch.as_tensor(np.asarray(image))
+    img = img.to(device)
+    if img.dtype != torch.uint8:
+        img = torch.clamp(img, 0, 255).to(torch.uint8)
+    return bgr_to_gray(img) if img.ndim == 3 else img
+
+
+class ORBDetector:
+    """ORB (reference depth_enhanced_reconstruction.py:197-199: 2000
+    features, 8 levels).
+
+    backend: 'cv2' (OpenCV's C++ ORB), 'device' (``ops/orb.py`` on
+    ``device``), 'auto' (see ``resolve_backend``). device: where features
+    are computed and kept (``None``: the CUDA device; raises when there is
+    none). Grey is ``bgr_to_gray`` on the device for the device backend,
+    ``cv2.cvtColor`` for OpenCV's (the same values).
+    """
+
+    def __init__(self, n_features: int = 2000, n_levels: int = 8,
+                 capacity: int = 2048, backend: str = "auto", device=None):
+        self.device = resolve_device(device)
+        self.backend = resolve_backend(backend, self.device)
+        self.n_levels = n_levels
+        self.capacity = capacity
+        if self.backend == "cv2":
+            cv2 = require_cv2("the 'cv2' feature backend")
+            self.orb = cv2.ORB_create(nfeatures=n_features,
+                                      nlevels=n_levels)
+
+    @torch.no_grad()
+    def detect(self, bgr) -> Features:
+        """Features of one (H, W, 3) BGR or (H, W) grey image."""
+        if self.backend == "device":
+            f = orb_features(gray_u8(bgr, self.device),
+                             capacity=self.capacity, n_levels=self.n_levels)
+            return Features(f.uv, f.desc, f.mask, "orb")
+        cv2 = require_cv2("the 'cv2' feature backend")
+        img = bgr.cpu().numpy() if isinstance(bgr, torch.Tensor) \
+            else np.asarray(bgr)
+        gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) if img.ndim == 3 \
+            else img
+        kps, desc = self.orb.detectAndCompute(gray, None)
+        if desc is None or len(kps) == 0:
+            return _pad_features(np.zeros((0, 2), np.float32),
+                                 np.zeros((0, 32), np.uint8), self.capacity,
+                                 "orb", self.device)
+        uv = np.array([kp.pt for kp in kps], np.float32)
+        return _pad_features(uv, desc, self.capacity, "orb", self.device)
 
 
 def match_features(f1: Features, f2: Features, ratio: float = 0.75

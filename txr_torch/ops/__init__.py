@@ -11,6 +11,9 @@ from txr_torch.ops.backproject import (
 )
 from txr_torch.ops.voxel import voxel_downsample
 from txr_torch.ops.outlier import knn_mean_distance, remove_statistical_outliers
+from txr_torch.ops.canny import canny
+from txr_torch.ops.lsd import LsdLines, lsd_lines
+from txr_torch.ops.orb import OrbFeatures, orb_features
 
 __all__ = [
     "backproject_batch",
@@ -19,4 +22,9 @@ __all__ = [
     "voxel_downsample",
     "knn_mean_distance",
     "remove_statistical_outliers",
+    "canny",
+    "LsdLines",
+    "lsd_lines",
+    "OrbFeatures",
+    "orb_features",
 ]

@@ -20,12 +20,14 @@ _BIG = 3.0e38
 
 
 def _two_smallest(d: torch.Tensor):
-    """(best, second, index of best) per row. ``torch.topk`` does not order
-    ties as ``jax.lax.top_k`` does, but no tie reaches a match: the two
-    values are the same either way, and a best tied with the second fails
-    the ratio test."""
-    vals, idx = torch.topk(d, 2, dim=-1, largest=False, sorted=True)
-    return vals[:, 0], vals[:, 1], idx[:, 0]
+    """(best, second, index of best) per row, the index the first of equal
+    bests (``jax.lax.top_k``'s order; ``torch.topk`` promises none). Ties
+    do reach a match: near-identical descriptors put two squared distances
+    at the clamp's 0, and the L2 ratio test's floor under the second
+    (1e-20) lets the pair pass."""
+    vals, _ = torch.topk(d, 2, dim=-1, largest=False, sorted=True)
+    idx = torch.argmax((d == vals[:, :1]).to(torch.uint8), dim=-1)
+    return vals[:, 0], vals[:, 1], idx
 
 
 @f32_dots
