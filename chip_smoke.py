@@ -93,12 +93,30 @@ at 8 columns is held to its plain version on the columns and starts LSD
 handed it for one frame and timed beside its bound, and that frame's LSD,
 Canny, ORB and SIFT on the card are held against the CPU.
 
+``stream_path`` runs ``reconstruction_torch.py``'s stepwise stream. Run
+A: ``StreamingReconstructor`` on a ping-pong trajectory over the same scene
+(cameras 0 ... 8 ... 0, 17 frames of 1080 x 1920; the scene's relative
+depth as the depth model, so the scale anchor runs; ICP on; keyframes
+every 2, 1 cm voxels in the stream's unit of one baseline) once under the
+profiler, then with loop closure off and on: each pair of both runs
+against the truth (``SFM_TOL``), the loops closed and each loop edge
+against the truth, the end camera's drift with and without closure (with
+closure at most the worst loop edge's error above it), one frame's ICP
+(normals, and the registration at the stream's radius and at 0.1 m) on
+the card against the CPU, stages between CUDA events, peak memory, and the
+map the fused-reduce kernel built replayed through the unfused route, bit
+for bit. Run B:
+``reconstruction_torch.main`` at its defaults (v2 vits, seeded weights)
+over 10 of the scene's frames handed in through ``make_source``: the PLY
+against the map, the grid's PGM / YAML read back, frames per second, and
+attention, tail and fused-reduce launches.
+
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
 ``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
-``enhanced_cli_path``, ``script`` (the whole run's wall), then the
-``kernels`` summary and, last, the verdict
+``enhanced_cli_path``, ``stream_path``, ``script`` (the whole run's wall),
+then the ``kernels`` summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
 code is non-zero; nothing runs on the CPU and no kernel is swapped for its
 plain version. Without a CUDA device the script exits with code 2 and
@@ -142,7 +160,7 @@ from txr_torch.core.types import PointSet
 from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
                                          _reduce_unfused, _sort_keys,
                                          create_offset_map, offset_map_insert,
-                                         offset_map_merge,
+                                         offset_map_merge, offset_map_points,
                                          offset_map_scan_inputs,
                                          offset_map_size)
 from txr_torch.io.ply import read_ply
@@ -1829,7 +1847,7 @@ def _rot(axis: int, deg: float) -> np.ndarray:
 
 
 def two_plane_scene(h: int, w: int, K: tuple, frames: int, device,
-                    seed: int = 0, **overrides) -> dict:
+                    seed: int = 0, cams=None, **overrides) -> dict:
     """Frames of a textured floor and wall with their ground truth.
 
     World axes x right, y down, z ahead; camera i sits at
@@ -1838,9 +1856,11 @@ def two_plane_scene(h: int, w: int, K: tuple, frames: int, device,
     cam_height) or the wall (z = wall_z), whichever is nearer; the colour
     is the plane's texture there (blocky noise, ``blocks_per_m`` blocks a
     metre, nearest-upsampled 4x, sampled bilinearly by ``grid_sample``: a
-    homography warp per plane). Returns BGR uint8 frames, metric depth, the
-    plane of each pixel (0 wall, 1 floor), world -> camera poses (float64
-    numpy) and the scene's parameters."""
+    homography warp per plane). ``cams``: the camera index of each frame
+    (default ``range(frames)``), so a trajectory may revisit a camera.
+    Returns BGR uint8 frames, metric depth, the plane of each pixel (0
+    wall, 1 floor), world -> camera poses (float64 numpy) and the scene's
+    parameters."""
     p = dict(SFM_SCENE, **overrides)
     fx, fy, cx, cy = K
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -1859,7 +1879,7 @@ def two_plane_scene(h: int, w: int, K: tuple, frames: int, device,
                        dim=-1)                              # camera frame
     pitch = _rot(0, -p["pitch_deg"])      # camera y, z turned towards +y
     bgr, depth, label, Rs, ts = [], [], [], [], []
-    for i in range(frames):
+    for i in (range(frames) if cams is None else cams):
         c2w = _rot(1, i * p["yaw_deg"]) @ pitch
         centre = np.array([i * p["baseline"], 0.0, 0.0])
         d = rays @ torch.from_numpy(c2w.T).to(device)       # world rays
@@ -2958,6 +2978,460 @@ def enhanced_cli_path() -> dict:
     return out
 
 
+STREAM_CAMS = list(range(9)) + list(range(7, -1, -1))   # 0 ... 8 ... 0
+STREAM_CLI_FRAMES = 10
+# The stream's world unit is the odometry baseline (pair_step's unit t):
+# 8 cm in the scene, so 1 cm voxels are 0.125 units and the scene's 1.4 to
+# 3.7 m depths are 17 to 46 units (max_depth 60 units = 4.8 m).
+STREAM_UNIT_M = SFM_SCENE["baseline"]
+STREAM_CFG = dict(voxel_size=0.01 / STREAM_UNIT_M, max_depth=60.0,
+                  keyframe_every=2, loop_min_separation=4, loop_stride=1,
+                  loop_inliers=25)
+STREAM_DRIFT_WHY = (
+    "a closure spreads its loop edges' errors over the keyframe graph; on "
+    "this noise-free scene the odometry drifts less than a loop edge errs "
+    "(the depth-anchored length of a distant pair, with the scale EMA "
+    "started at 1), so closure cannot lower the drift here and is held to "
+    "adding no more than its worst loop edge's error; both drifts are "
+    "reported")
+# ICP's correspondence radius of a metric stream (0.1 m) in the stream's
+# unit: the stream keeps the default 0.1 units (8 mm), at which ICP keeps no
+# frame here; at this radius it is accepted (and, against a map fused while
+# the scale EMA rose from 1, pulls the poses off: tools/stream_closure_drift.py)
+STREAM_ICP_WIDE = 0.1 / STREAM_UNIT_M
+# ICP on the card against the CPU on the same inputs: R (f32 sums of 4,096
+# rows in another order); the correction's motion of the source points to
+# 1 % of its size (the 6x6 system mixes rotations about an origin 17 to 46
+# units away with translations, and ten Gauss-Newton steps carry its
+# round-off: 7.4e-4 units of t on the card); the inlier fraction (a source
+# row at the radius may fall either side: two rows of 4,096); normals up
+# to sign (a near-equal 8th and 9th neighbour may swap)
+ICP_CARD_ATOL = 1e-4
+ICP_CARD_RTOL = 1e-2
+ICP_CARD_FRAC = 2 / 4096
+ICP_CARD_NORMAL_ATOL = 1e-3
+
+
+class StreamDepth:
+    """The scene's relative depth (metric over ``depth_div``) as a
+    duck-typed depth model, one frame per call, in stream order."""
+
+    def __init__(self, rel: torch.Tensor):
+        self.rel, self.i = rel, 0
+
+    def infer(self, bgr, intrinsics=None):
+        d = self.rel[self.i]
+        self.i += 1
+        return d
+
+
+class InsertLog:
+    """Wraps ``offset_map_insert``: keeps each call's points and whether
+    its map was a new one (a stream's first insert, a rebuild), to replay
+    the inserts through the unfused reduce route."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.last = fn, [], None
+
+    def __call__(self, vm, pts):
+        out = self.fn(vm, pts)
+        self.calls.append((vm is not self.last, vm.khi.shape[0],
+                           vm.voxel_size, PointSet(
+                               pts.xyz.clone(), pts.rgb.clone(),
+                               pts.mask.clone())))
+        self.last = out
+        return out
+
+    def replay_unfused(self):
+        vm = None
+        for fresh, cap, voxel, pts in self.calls:
+            if fresh:
+                vm = create_offset_map(cap, float(voxel))
+            vm = _reduce_unfused(_insert_cols(vm, pts), cap, vm.voxel_size)
+        return vm
+
+
+def stream_truth(scene: dict, poses: list) -> tuple:
+    """Per consecutive pair, the rotation and translation-direction error
+    of the stream's poses against the scene; the end camera's distance
+    from the start camera (the trajectory ends where it began), in the
+    stream's units."""
+    R_true, t_dir = relative_truth(scene["R"], scene["t"])
+    pairs = []
+    for p in range(len(poses) - 1):
+        (Ra, ta), (Rb, tb) = poses[p], poses[p + 1]
+        R_rel = Rb @ Ra.T
+        t_rel = tb - R_rel @ ta
+        c = float(np.clip(t_rel @ t_dir[p] / np.linalg.norm(t_rel), -1, 1))
+        pairs.append((angle_deg(R_rel, R_true[p]),
+                      float(np.degrees(np.arccos(c)))))
+    (R0, t0), (Rn, tn) = poses[0], poses[-1]
+    drift = float(np.linalg.norm(-Rn.T @ tn - (-R0.T @ t0)))
+    return pairs, drift
+
+
+def stream_run(scene: dict, rel: torch.Tensor, closure: bool,
+               timer=None, inserts=None, icp_call=None):
+    """One pass of the stepwise stream over the scene's frames; returns
+    (reconstructor, wall seconds). ``icp_call`` (a list) receives the
+    arguments of the last frame refinement's ``icp_point_to_plane``."""
+    import txr_torch.pipelines.streaming as st
+    from txr_torch.core.config import StreamingConfig
+
+    fx, fy, cx, cy = SFM_K
+    intr = CameraIntrinsics(fx=fx, fy=fy, cx=cx, cy=cy, width=SFM_W,
+                            height=SFM_H)
+    rec = st.StreamingReconstructor(
+        intr, depth_model=StreamDepth(rel), use_icp=True, verbose=False,
+        config=StreamingConfig(loop_closure=closure, **STREAM_CFG))
+    saved = st.offset_map_insert
+    rec.edges_seen = []
+    refine = rec._refine_loop_edge
+
+    def refine_kept(old_ki, R_rel, t_rel):
+        R, t = refine(old_ki, R_rel, t_rel)
+        rec.edges_seen.append((old_ki, len(rec.keyframes) - 1, R_rel, t_rel,
+                               R, t))
+        return R, t
+
+    rec._refine_loop_edge = refine_kept
+    if icp_call is not None:
+        refine_icp = rec._refine_icp
+
+        def refine_icp_kept(ps, R, t):
+            icp = st.icp_point_to_plane
+
+            def icp_kept(*a, **k):
+                icp_call[:] = [a, k]
+                return icp(*a, **k)
+
+            st.icp_point_to_plane = icp_kept
+            try:
+                return refine_icp(ps, R, t)
+            finally:
+                st.icp_point_to_plane = icp
+
+        rec._refine_icp = refine_icp_kept
+    if timer is not None:
+        timer.wrap(rec.depth_model, "infer", "depth")
+        timer.wrap(rec.detector, "detect", "features")
+        timer.wrap(rec, "_estimate_pose_features", "pose")
+        timer.wrap(rec, "_refine_icp", "icp")
+        timer.wrap(st, "offset_map_insert", "insert")
+        timer.wrap(rec, "_maybe_keyframe", "keyframe / loop")
+    if inserts is not None:
+        inserts.fn = st.offset_map_insert
+        st.offset_map_insert = inserts
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(STREAM_CAMS)):
+            rec.process_frame(scene["bgr"][i], float(i), str(i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        st.offset_map_insert = saved
+        if timer is not None:
+            timer.restore()
+    return rec, wall
+
+
+def icp_card_against_cpu(call: list) -> dict:
+    """One frame's ICP refinement on the card against the same calls on the
+    CPU, from the card run's inputs: ``estimate_normals`` of the target
+    alone, then ``icp_point_to_plane`` alone on the card's normals. At the
+    stream's correspondence radius, where the refinement is rejected, both
+    must reject it; at ``STREAM_ICP_WIDE`` both must accept it (inlier
+    fraction at least 0.3) with R, the fraction and the correction's
+    motion of the source points held to the CPU's."""
+    from txr_torch.geometry.icp import estimate_normals, icp_point_to_plane
+
+    (src, srcm, tgt, nrm, tgtm, R0, t0), kw = call
+    host = [x.cpu() for x in (src, srcm, tgt, nrm, tgtm, R0, t0)]
+    n_cpu = estimate_normals(host[2], host[4], k=8)
+    xs = host[0][host[1]]
+    err = (nrm.cpu() - n_cpu).abs().max(dim=1).values
+    # a normal's sign is free (the point-to-plane system is even in it)
+    err_unsigned = torch.minimum(err, (nrm.cpu() + n_cpu).abs().max(
+        dim=1).values)
+    out = {"sources": int(srcm.sum()), "targets": int(tgtm.sum()),
+           "normals": {"max_abs_err": float(err.max()),
+                       "max_abs_err_up_to_sign": float(err_unsigned.max()),
+                       "atol": ICP_CARD_NORMAL_ATOL}}
+    for corr in (kw["max_correspondence"], STREAM_ICP_WIDE):
+        got = [torch.as_tensor(x).cpu() for x in icp_point_to_plane(
+            src, srcm, tgt, nrm, tgtm, R0, t0, kw["iterations"], corr)]
+        want = icp_point_to_plane(*host, kw["iterations"], corr)
+        moved = xs @ want[0].T + want[1]
+        row = {"R_max_abs_err": float((got[0] - want[0]).abs().max()),
+               "t_max_abs_err": float((got[1] - want[1]).abs().max()),
+               # what the correction does to the source points, and how far
+               # the card's moves them from where the CPU's does
+               "correction_max": float((moved - xs).norm(dim=1).max()),
+               "correction_diff_max": float(
+                   (xs @ got[0].T + got[1] - moved).norm(dim=1).max()),
+               "rmse": [float(got[2]), float(want[2])],
+               "inlier_fraction": [float(got[3]), float(want[3])]}
+        out[f"icp_at_{corr:g}"] = row
+        kept = [f >= 0.3 for f in row["inlier_fraction"]]
+        if corr != STREAM_ICP_WIDE:
+            # rejected: a solve over a few % of the rows, held only to the
+            # same decision
+            bad = kept[0] != kept[1]
+        else:
+            bad = (not all(kept) or row["R_max_abs_err"] > ICP_CARD_ATOL
+                   or row["correction_diff_max"]
+                   > ICP_CARD_RTOL * row["correction_max"]
+                   or abs(row["inlier_fraction"][0]
+                          - row["inlier_fraction"][1]) > ICP_CARD_FRAC)
+        if bad:
+            raise AssertionError(f"stream_path: ICP on the card against the "
+                                 f"CPU: {out}")
+    if out["normals"]["max_abs_err_up_to_sign"] > ICP_CARD_NORMAL_ATOL:
+        raise AssertionError(f"stream_path: normals on the card against the "
+                             f"CPU: {out}")
+    return out
+
+
+class SceneSource(ImageSource):
+    """A folder source's frames, handed to the CLI through ``make_source``
+    (the machine has no image codec); intrinsics as a folder without a
+    calibration file gets them."""
+
+    def __init__(self, frames: list):
+        self.frames = iter(frames)
+        h, w = frames[0].shape[:2]
+        self.intrinsics = CameraIntrinsics.default(w, h)
+        self.n = 0
+
+    def __next__(self):
+        bgr = next(self.frames)
+        self.n += 1
+        return bgr, float(self.n - 1), f"frame_{self.n - 1:02d}"
+
+
+def read_pgm(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        data = f.read()
+    head = data.split(b"\n", 4)
+    if head[0] != b"P5" or head[3] != b"255":
+        raise AssertionError(f"{path} is not the grid's binary PGM")
+    w, h = map(int, head[2].split())
+    img = np.frombuffer(head[4], np.uint8)
+    if img.size != w * h:
+        raise AssertionError(f"{path}: {img.size} pixels for {w} x {h}")
+    return img.reshape(h, w)
+
+
+def stream_cli_run(frames: list, out_dir: str) -> dict:
+    """reconstruction_torch.main at its defaults over ``frames``: the PLY
+    against the map, the grid's PGM / YAML read back against the grid the
+    reconstructor computes, the counters of its kernels."""
+    import importlib.util
+
+    import txr_torch.io.sources as sources
+    import txr_torch.pipelines.streaming as st
+    from txr_torch.fusion.occupancy import occupancy_grid
+
+    spec = importlib.util.spec_from_file_location(
+        "reconstruction_torch", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "reconstruction_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    built = {}
+
+    class Recorded(st.StreamingReconstructor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built["rec"] = self
+
+    saved = (sources.make_source, st.StreamingReconstructor)
+    sources.make_source = lambda *a, **kw: SceneSource(frames)
+    st.StreamingReconstructor = Recorded
+    out = os.path.join(out_dir, "scene.ply")
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--mode", "folder", "--input", out_dir,
+                       "--output", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        sources.make_source, st.StreamingReconstructor = saved
+    rec = built["rec"]
+    if rc != 0:
+        raise AssertionError(f"reconstruction_torch.main returned {rc}")
+    xyz, _ = read_ply(out)
+    voxels = int(offset_map_size(rec.map))
+    if len(xyz) != voxels or not np.isfinite(xyz).all():
+        raise AssertionError(f"stream CLI: {len(xyz)} PLY points, "
+                             f"{voxels} voxels")
+    img = read_pgm(os.path.join(out_dir, "scene_grid.pgm"))
+    with open(os.path.join(out_dir, "scene_grid.yaml")) as f:
+        yaml = f.read()
+    pts, _ = offset_map_points(rec.map).to_numpy()
+    centers = np.stack([-R.T @ t for R, t in rec.poses])
+    grid, origin = occupancy_grid(pts, camera_centers=centers)
+    want_origin = f"origin: [{origin[0]:.6f}, {origin[1]:.6f}, 0.0]"
+    if img.shape != grid.shape or want_origin not in yaml \
+            or "image: scene_grid.pgm" not in yaml:
+        raise AssertionError(f"stream CLI grid: {img.shape} against "
+                             f"{grid.shape}, {yaml!r}")
+    if not (launches["attention"] > 0 and launches["dpt_tail"] > 0
+            and launches["offset_reduce"] > 0):
+        raise AssertionError(f"stream CLI launched {launches}")
+    return {"wall_s": wall, "frames": rec.frames_processed,
+            "frames_per_second": rec.frames_processed / wall,
+            "skipped": rec.frames_skipped, "icp_accepted": rec.icp_accepted,
+            "keyframes": len(rec.keyframes), "voxels": voxels,
+            "ply_points": int(len(xyz)), "grid_rows_cols": list(img.shape),
+            "grid_origin": list(origin),
+            "grid_cells": {"occupied": int((grid == 100).sum()),
+                           "free": int((grid == 0).sum())},
+            "scale": rec.scale, "launches": launches}
+
+
+def stream_path() -> dict:
+    """reconstruction_torch.py's stepwise stream on the card. Run A: the
+    reconstructor on a ping-pong trajectory 0 ... 8 ... 0 (17 frames of
+    1080 x 1920) of sfm_path's scene, the scene's relative depth as the
+    depth model (the scale anchor runs), ICP on, loop closure off and on,
+    against the truth; stages, one profiled run, peak memory, and the
+    map replayed through the unfused reduce. Run B: the CLI's main at its
+    defaults (v2 vits, seeded weights) over 10 of the scene's frames."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    dev = torch.device("cuda")
+    scene = two_plane_scene(SFM_H, SFM_W, SFM_K, len(STREAM_CAMS), dev,
+                            cams=STREAM_CAMS)
+    rel = scene["depth"] / SFM_SCENE["depth_div"]
+    part("scene")
+
+    # ---- Run A: one run under the profiler (also the warm-up), then
+    # closure off and on, timed (the second with its inserts recorded)
+    prof = kernel_breakdown(lambda: stream_run(scene, rel, closure=True))
+    part("run_a_profiled")
+    icp_call = []
+    off, wall_off = stream_run(scene, rel, closure=False, icp_call=icp_call)
+    pairs_off, drift_off = stream_truth(scene, off.poses)
+    part("run_a_closure_off")
+    icp_check = icp_card_against_cpu(icp_call)
+    del icp_call
+    part("icp_card_against_cpu")
+    timer = StageTimer()
+    inserts = InsertLog(None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    on, wall_on = stream_run(scene, rel, closure=True, timer=timer,
+                             inserts=inserts)
+    launches_a = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    pairs_on, drift_on = stream_truth(scene, on.poses)
+    stages = timer.ms()
+    n = len(STREAM_CAMS)
+    part("run_a_closure_on")
+    # the kernel of the path: the same inserts through the unfused route
+    voxels = require_maps_equal(
+        f"stream_path: {len(inserts.calls)} inserts of run A replayed "
+        "through the unfused route", on.map, inserts.replay_unfused())
+    del inserts
+    part("replay_unfused")
+
+    # each loop edge (feature RANSAC + depth-anchored length, then the
+    # ICP between the keyframe clouds) against the truth, in stream units
+    edges = []
+    for old_ki, new_ki, R_raw, t_raw, R_ref, t_ref in on.edges_seen:
+        a = on.keyframes[old_ki]["pose_idx"]
+        b = on.keyframes[new_ki]["pose_idx"]
+        R_t = scene["R"][b] @ scene["R"][a].T
+        t_t = (scene["t"][b] - R_t @ scene["t"][a]) / STREAM_UNIT_M
+        edges.append({
+            "frames": [a, b], "cams": [STREAM_CAMS[a], STREAM_CAMS[b]],
+            "true_length": float(np.linalg.norm(t_t)),
+            "raw": {"rot_err_deg": angle_deg(R_raw, R_t),
+                    "t_err": float(np.linalg.norm(t_raw - t_t)),
+                    "length": float(np.linalg.norm(t_raw))},
+            "after_icp": {"rot_err_deg": angle_deg(R_ref, R_t),
+                          "t_err": float(np.linalg.norm(t_ref - t_t)),
+                          "length": float(np.linalg.norm(t_ref))}})
+    edge_err = max((e["after_icp"]["t_err"] for e in edges), default=0.0)
+    worst = lambda prs, i: max(p[i] for p in prs)  # noqa: E731
+    run_a = {
+        "frames": n, "cams": STREAM_CAMS, "config": dict(
+            STREAM_CFG, unit_m=STREAM_UNIT_M, use_icp=True,
+            metric_depth=False, kf_working_set=on.cfg.kf_working_set),
+        "closure_off": {"wall_s": wall_off,
+                        "frames_per_second": n / wall_off,
+                        "fused": off.frames_processed,
+                        "skipped": off.frames_skipped,
+                        "icp_accepted": off.icp_accepted,
+                        "scale": off.scale, "end_drift_units": drift_off,
+                        "worst_rot_err_deg": worst(pairs_off, 0),
+                        "worst_t_dir_err_deg": worst(pairs_off, 1),
+                        "pair_errors_deg": pairs_off},
+        "closure_on": {"wall_s": wall_on, "frames_per_second": n / wall_on,
+                       "fused": on.frames_processed,
+                       "skipped": on.frames_skipped,
+                       "icp_accepted": on.icp_accepted,
+                       "loops_closed": on.loops_closed, "loop_edges": edges,
+                       "keyframes": len(on.keyframes),
+                       "spilled": sum(1 for k in on.keyframes
+                                      if k.get("spilled")),
+                       "scale": on.scale, "end_drift_units": drift_on,
+                       "worst_rot_err_deg": worst(pairs_on, 0),
+                       "worst_t_dir_err_deg": worst(pairs_on, 1),
+                       "pair_errors_deg": pairs_on, "voxels": voxels,
+                       "stages_ms": stages,
+                       "stages_ms_per_frame": {k: v["ms"] / n
+                                               for k, v in stages.items()},
+                       "peak_memory_bytes": peak, "launches": launches_a,
+                       "profiled": prof,
+                       # device time and wall of the one profiled call (its
+                       # wall carries the profiler's own host cost)
+                       "device_busy_share_profiled_call": prof["device_ms"]
+                       / prof["wall_ms_under_profiler"],
+                       # the same device work (seeded draws, the same
+                       # frames) over this timed run's wall
+                       "profiled_device_ms_over_timed_wall":
+                       prof["device_ms"] / (wall_on * 1e3)},
+        "icp_card_against_cpu": icp_check,
+        "drift_with_closure_over_without": drift_on / max(drift_off, 1e-12),
+        "drift_bound": {"closure_off_plus_worst_loop_edge_error":
+                        drift_off + edge_err, "why": STREAM_DRIFT_WHY}}
+    bad = [(run, p) for run, prs in (("off", pairs_off), ("on", pairs_on))
+           for p, (r, d) in enumerate(prs)
+           if r > SFM_TOL["rot_deg"] or d > SFM_TOL["t_dir_deg"]]
+    if (off.frames_processed != n or on.frames_processed != n or bad
+            or on.loops_closed < 1 or len(edges) != on.loops_closed
+            or drift_on > drift_off + edge_err
+            or launches_a["offset_reduce"] < n
+            or not all(np.isfinite(R).all() and np.isfinite(t).all()
+                       for R, t in on.poses)):
+        raise AssertionError(f"stream_path run A: pairs off SFM_TOL {bad}: "
+                             f"{run_a}")
+
+    # ---- Run B: the CLI at its defaults
+    frames = list(scene["bgr"][:STREAM_CLI_FRAMES].cpu().numpy())
+    del scene, rel, off, on
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        run_b = stream_cli_run(frames, td)
+    part("run_b_cli")
+    out = {"phase": "stream_path", "input": [SFM_H, SFM_W],
+           "sfm_tolerance": SFM_TOL, "run_a": run_a, "run_b": run_b,
+           "launches": run_b["launches"], "launches_over_steps": 1,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "phase_parts_s": parts, "ok": True}
+    emit(out)
+    return out
+
+
 def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
     """The depth error of the port's bf16 arithmetic: the default model
     (bf16, attention and tail kernels) against an f32 model carrying the
@@ -3206,12 +3680,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     erun = enhanced_cli_path()
     torch.cuda.empty_cache()
+    strun = stream_path()
+    torch.cuda.empty_cache()
     # row 3's third entry: the scan at 8 columns on LSD's inputs
     scan_row["lsd_8_columns"] = erun["scan_8_columns"]
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
             "odd_heads_path": orun, "depth_cli_path": crun,
             "sfm_path": srun, "fusion_cli_path": frun,
-            "enhanced_cli_path": erun}
+            "enhanced_cli_path": erun, "stream_path": strun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counters = k.get("counters", [k["name"]])

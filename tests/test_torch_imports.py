@@ -62,7 +62,10 @@ def test_package_has_the_slice_modules():
             "txr_torch.ops.orb", "txr_torch.ops.lsd",
             "txr_torch.geometry.hybrid",
             "txr_torch.geometry.bundle_adjustment",
-            "txr_torch.pipelines.enhanced_pipeline"}
+            "txr_torch.pipelines.enhanced_pipeline",
+            "txr_torch.geometry.icp", "txr_torch.geometry.pose_graph",
+            "txr_torch.geometry.appearance", "txr_torch.fusion.occupancy",
+            "txr_torch.pipelines.streaming"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
@@ -176,11 +179,35 @@ def test_enhanced_cli_imports_the_port_alone():
     assert "clean" in r.stdout
 
 
+def test_stream_cli_imports_the_port_alone():
+    """Importing the streaming CLI, parsing its flags and importing its
+    pipeline loads neither JAX, ``txr``, OpenCV nor Plotly, and builds
+    nothing."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('cli', "
+        "'reconstruction_torch.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "mod.build_parser().parse_args(['--no-fused', '--mode', 'camera'])\n"
+        "import txr_torch._cuda as k, txr_torch._native as n\n"
+        "import txr_torch.pipelines.streaming\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'txr', 'cv2', 'plotly'))\n"
+        "assert not bad, bad\n"
+        "assert k._lib is None and n._lib is None and not n._tried\n"
+        "print('clean')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "depth_processor_torch.py",
        ROOT / "depth_to_reconstruction_torch.py",
-       ROOT / "depth_enhanced_reconstruction_torch.py"]))
+       ROOT / "depth_enhanced_reconstruction_torch.py",
+       ROOT / "reconstruction_torch.py"]))
 def test_source_imports_no_jax_flax_txr(path):
     text = (ROOT / path).read_text()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|txr)(?:[.\s]|$)",
