@@ -97,8 +97,8 @@ Canny, ORB and SIFT on the card are held against the CPU.
 A: ``StreamingReconstructor`` on a ping-pong trajectory over the same scene
 (cameras 0 ... 8 ... 0, 17 frames of 1080 x 1920; the scene's relative
 depth as the depth model, so the scale anchor runs; ICP on; keyframes
-every 2, 1 cm voxels in the stream's unit of one baseline) once under the
-profiler, then with loop closure off and on: each pair of both runs
+every 2, 1 cm voxels in the stream's unit of one baseline) over its first
+6 frames under the profiler, then with loop closure off and on: each pair of both runs
 against the truth (``SFM_TOL``), the loops closed and each loop edge
 against the truth, the end camera's drift with and without closure (with
 closure at most the worst loop edge's error above it), one frame's ICP
@@ -106,16 +106,34 @@ closure at most the worst loop edge's error above it), one frame's ICP
 the card against the CPU, stages between CUDA events, peak memory, and the
 map the fused-reduce kernel built replayed through the unfused route, bit
 for bit. Run B:
-``reconstruction_torch.main`` at its defaults (v2 vits, seeded weights)
-over 10 of the scene's frames handed in through ``make_source``: the PLY
-against the map, the grid's PGM / YAML read back, frames per second, and
+``reconstruction_torch.main --no-fused`` (v2 vits, seeded weights) over 10
+of the scene's frames handed in through ``make_source``: the PLY against
+the map, the grid's PGM / YAML read back, frames per second, and
 attention, tail and fused-reduce launches.
+
+``stream_fused_path`` runs the streaming CLI's default, the fused step
+(``txr_torch/pipelines/stream_step.py``: each step a CUDA graph, captured
+once and replayed). Run A': run A's scene with the depth through a stand-in
+for the port's model whose device forward reads a buffer filled per frame,
+per frame against ``stream_path``'s stepwise runs on the same draws
+(closure off and on: the same counts, loops and ICP decisions, poses within
+1e-4, pairs against the truth), both routes at 0.1 m of ICP radius (ICP
+kept on at least one frame, the same decisions), a replay against the
+eager step bit for bit, the steady state under PyTorch's sync debug mode
+"error" between host reads, frames per second of the three routes (8
+frames a step batched), capture time and pool of each graph, 6 profiled
+frames, and ``pair_step`` eager against its own graph. Run B: the CLI at
+its defaults (the batched fused route) over the same 10 frames, cold and
+then warm; its depth graph (attention and tail kernels inside) against
+its eager call. A graph's kernel launches are its launches per replay
+times its replays, plus its warm-up calls'.
 
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
 ``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
-``enhanced_cli_path``, ``stream_path``, ``script`` (the whole run's wall),
+``enhanced_cli_path``, ``stream_path``, ``stream_fused_path``, ``script``
+(the whole run's wall),
 then the ``kernels`` summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
 code is non-zero; nothing runs on the CPU and no kernel is swapped for its
@@ -2980,6 +2998,7 @@ def enhanced_cli_path() -> dict:
 
 STREAM_CAMS = list(range(9)) + list(range(7, -1, -1))   # 0 ... 8 ... 0
 STREAM_CLI_FRAMES = 10
+STREAM_PROFILE_FRAMES = 6       # frames of each stream's profiled run
 # The stream's world unit is the odometry baseline (pair_step's unit t):
 # 8 cm in the scene, so 1 cm voxels are 0.125 units and the scene's 1.4 to
 # 3.7 m depths are 17 to 46 units (max_depth 60 units = 4.8 m).
@@ -3071,10 +3090,11 @@ def stream_truth(scene: dict, poses: list) -> tuple:
 
 
 def stream_run(scene: dict, rel: torch.Tensor, closure: bool,
-               timer=None, inserts=None, icp_call=None):
-    """One pass of the stepwise stream over the scene's frames; returns
-    (reconstructor, wall seconds). ``icp_call`` (a list) receives the
-    arguments of the last frame refinement's ``icp_point_to_plane``."""
+               timer=None, inserts=None, icp_call=None, frames=None):
+    """One pass of the stepwise stream over the scene's frames (the first
+    ``frames`` of them); returns (reconstructor, wall seconds).
+    ``icp_call`` (a list) receives the arguments of the last frame
+    refinement's ``icp_point_to_plane``."""
     import txr_torch.pipelines.streaming as st
     from txr_torch.core.config import StreamingConfig
 
@@ -3125,7 +3145,7 @@ def stream_run(scene: dict, rel: torch.Tensor, closure: bool,
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(len(STREAM_CAMS)):
+        for i in range(frames or len(STREAM_CAMS)):
             rec.process_frame(scene["bgr"][i], float(i), str(i))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3223,10 +3243,14 @@ def read_pgm(path: str) -> np.ndarray:
     return img.reshape(h, w)
 
 
-def stream_cli_run(frames: list, out_dir: str) -> dict:
-    """reconstruction_torch.main at its defaults over ``frames``: the PLY
-    against the map, the grid's PGM / YAML read back against the grid the
-    reconstructor computes, the counters of its kernels."""
+def stream_cli_run(frames: list, out_dir: str, extra=(), warm=False
+                   ) -> dict:
+    """reconstruction_torch.main at its defaults (and ``extra`` arguments)
+    over ``frames``: the PLY against the map, the grid's PGM / YAML read
+    back against the grid the reconstructor computes, the route it took,
+    the counters of its kernels. ``warm``: then a second reconstructor
+    over the CLI's model and settings takes the same frames, timed (a
+    fused route replays the graphs the CLI captured)."""
     import importlib.util
 
     import txr_torch.io.sources as sources
@@ -3254,7 +3278,7 @@ def stream_cli_run(frames: list, out_dir: str) -> dict:
         kernels.reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(["--mode", "folder", "--input", out_dir,
-                       "--output", out])
+                       "--output", out, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
@@ -3282,7 +3306,24 @@ def stream_cli_run(frames: list, out_dir: str) -> dict:
     if not (launches["attention"] > 0 and launches["dpt_tail"] > 0
             and launches["offset_reduce"] > 0):
         raise AssertionError(f"stream CLI launched {launches}")
-    return {"wall_s": wall, "frames": rec.frames_processed,
+    warm_fps = None
+    if warm:
+        again = st.StreamingReconstructor(
+            rec.intr, depth_model=rec.depth_model, config=rec.cfg,
+            use_icp=rec.use_icp, metric_depth=rec.metric_depth,
+            verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again.run(SceneSource(frames))
+        torch.cuda.synchronize()
+        warm_fps = again.frames_processed / (time.perf_counter() - t0)
+        if again.route != rec.route or again.poses[-1][1].tolist() \
+                != rec.poses[-1][1].tolist():
+            raise AssertionError("stream CLI: the warm pass differs from "
+                                 "the CLI's")
+    return {"route": rec.route, "wall_s": wall,
+            "warm_frames_per_second": warm_fps,
+            "frames": rec.frames_processed,
             "frames_per_second": rec.frames_processed / wall,
             "skipped": rec.frames_skipped, "icp_accepted": rec.icp_accepted,
             "keyframes": len(rec.keyframes), "voxels": voxels,
@@ -3293,14 +3334,16 @@ def stream_cli_run(frames: list, out_dir: str) -> dict:
             "scale": rec.scale, "launches": launches}
 
 
-def stream_path() -> dict:
+def stream_path() -> tuple:
     """reconstruction_torch.py's stepwise stream on the card. Run A: the
     reconstructor on a ping-pong trajectory 0 ... 8 ... 0 (17 frames of
     1080 x 1920) of sfm_path's scene, the scene's relative depth as the
     depth model (the scale anchor runs), ICP on, loop closure off and on,
-    against the truth; stages, one profiled run, peak memory, and the
-    map replayed through the unfused reduce. Run B: the CLI's main at its
-    defaults (v2 vits, seeded weights) over 10 of the scene's frames."""
+    against the truth; stages, one profiled run of 6 frames, peak memory,
+    and the map replayed through the unfused reduce. Run B: the CLI's main
+    with --no-fused (v2 vits, seeded weights) over 10 of the scene's
+    frames. Returns the phase's line and the runs stream_fused_path holds
+    its fused runs against."""
     t_phase = time.perf_counter()
     parts = {}
 
@@ -3313,9 +3356,11 @@ def stream_path() -> dict:
     rel = scene["depth"] / SFM_SCENE["depth_div"]
     part("scene")
 
-    # ---- Run A: one run under the profiler (also the warm-up), then
-    # closure off and on, timed (the second with its inserts recorded)
-    prof = kernel_breakdown(lambda: stream_run(scene, rel, closure=True))
+    # ---- Run A: one run of the first frames under the profiler (also the
+    # warm-up), then closure off and on, timed (the second with its inserts
+    # recorded)
+    prof = kernel_breakdown(lambda: stream_run(
+        scene, rel, closure=False, frames=STREAM_PROFILE_FRAMES))
     part("run_a_profiled")
     icp_call = []
     off, wall_off = stream_run(scene, rel, closure=False, icp_call=icp_call)
@@ -3391,15 +3436,17 @@ def stream_path() -> dict:
                        "stages_ms_per_frame": {k: v["ms"] / n
                                                for k, v in stages.items()},
                        "peak_memory_bytes": peak, "launches": launches_a,
-                       "profiled": prof,
+                       "profiled": dict(prof, frames=STREAM_PROFILE_FRAMES,
+                                        closure=False),
                        # device time and wall of the one profiled call (its
                        # wall carries the profiler's own host cost)
                        "device_busy_share_profiled_call": prof["device_ms"]
                        / prof["wall_ms_under_profiler"],
-                       # the same device work (seeded draws, the same
-                       # frames) over this timed run's wall
-                       "profiled_device_ms_over_timed_wall":
-                       prof["device_ms"] / (wall_on * 1e3)},
+                       # its device time a frame over the closure-off
+                       # run's wall a frame (the same seeded frames)
+                       "profiled_device_ms_per_frame_over_closure_off_wall":
+                       prof["device_ms"] / STREAM_PROFILE_FRAMES
+                       / (wall_off * 1e3 / n)},
         "icp_card_against_cpu": icp_check,
         "drift_with_closure_over_without": drift_on / max(drift_off, 1e-12),
         "drift_bound": {"closure_off_plus_worst_loop_edge_error":
@@ -3418,14 +3465,401 @@ def stream_path() -> dict:
 
     # ---- Run B: the CLI at its defaults
     frames = list(scene["bgr"][:STREAM_CLI_FRAMES].cpu().numpy())
-    del scene, rel, off, on
+    del scene, rel
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as td:
-        run_b = stream_cli_run(frames, td)
+        run_b = stream_cli_run(frames, td, ["--no-fused"])
     part("run_b_cli")
     out = {"phase": "stream_path", "input": [SFM_H, SFM_W],
            "sfm_tolerance": SFM_TOL, "run_a": run_a, "run_b": run_b,
            "launches": run_b["launches"], "launches_over_steps": 1,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "phase_parts_s": parts, "ok": True}
+    emit(out)
+    # stream_fused_path holds its fused runs against these stepwise ones
+    return out, {"off": off, "on": on, "wall_off": wall_off,
+                 "wall_on": wall_on, "run_b": run_b}
+
+
+# The fused stream (stream_fused_path): the stand-in depth model keeps the
+# scene's relative depth in a buffer at a fixed address, which a captured
+# step reads; the source fills it as it hands each frame out.
+STREAM_FUSED_BATCH = 8            # the CLI's stream_batch
+STREAM_FUSED_POSE_ATOL = 1e-4     # fused against stepwise, as on the CPU
+
+
+class SceneDepthModel(DepthAnythingModel):
+    """A stand-in for the port's depth model (so ``run`` takes the fused
+    route): its device-forward method ``_forward`` returns the relative
+    depth of the frames in hand from ``buf``, which ``SceneFrames`` fills;
+    ``infer`` (the stepwise route) the same for one frame."""
+
+    def __init__(self, rel: torch.Tensor, batch: int):
+        self.device = rel.device
+        self.version, self.encoder, self.input_size = "v2", "scene", 518
+        self.focal_length_ref, self.metric = 300.0, False
+        self.rel, self.batch = rel, batch
+        self.buf = torch.zeros((batch, *rel.shape[1:]), device=rel.device)
+
+    def _forward(self, rgb_u8, in_h, in_w, out_h, out_w):
+        return self.buf[:rgb_u8.shape[0]] * 1.0
+
+    def infer(self, image, intrinsics=None):
+        return self.buf[0] * 1.0
+
+
+class SceneFrames:
+    """The scene's frames in stream order (device tensors); handing out
+    frame k puts its depth into slot k mod batch of the model's buffer.
+    With ``sync_from`` set, PyTorch's sync debug mode is "error" from that
+    frame on (steps enqueued between two host reads must not sync)."""
+
+    realtime = False
+
+    def __init__(self, scene: dict, model: SceneDepthModel, frames=None,
+                 sync_from=None):
+        self.bgr, self.model = scene["bgr"], model
+        self.n = frames or len(STREAM_CAMS)
+        self.sync_from = sync_from
+
+    def __iter__(self):
+        try:
+            for k in range(self.n):
+                if k == self.sync_from:
+                    torch.cuda.set_sync_debug_mode("error")
+                self.model.buf[k % self.model.batch].copy_(self.model.rel[k])
+                yield self.bgr[k], float(k), str(k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def host_reads_allowed(fn):
+    """``fn`` with the sync debug mode lifted around it: the fused runs'
+    one host read per drain."""
+
+    def wrapped(*a, **k):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return wrapped
+
+
+def fused_stream_run(scene: dict, model: SceneDepthModel, fused: bool,
+                     closure: bool, frames=None, sync_from=None,
+                     **cfg) -> tuple:
+    """One pass of the scene through ``StreamingReconstructor.run``: the
+    fused route (per frame when the model's batch is 1, else batched) or
+    the stepwise one, with the generator's draws seeded 0 in both. Returns
+    (reconstructor, wall seconds)."""
+    import txr_torch.pipelines.streaming as st
+    from txr_torch.core.config import StreamingConfig
+
+    fx, fy, cx, cy = SFM_K
+    intr = CameraIntrinsics(fx=fx, fy=fy, cx=cx, cy=cy, width=SFM_W,
+                            height=SFM_H)
+    rec = st.StreamingReconstructor(
+        intr, depth_model=model, use_icp=True, verbose=False, fused=fused,
+        config=StreamingConfig(loop_closure=closure,
+                               stream_batch=model.batch,
+                               **dict(STREAM_CFG, **cfg)))
+    saved = st.read_rows
+    st.read_rows = host_reads_allowed(saved)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.run(SceneFrames(scene, model, frames, sync_from))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        st.read_rows = saved
+    return rec, wall
+
+
+def routes_agree(name: str, fused, step) -> dict:
+    """The fused and stepwise runs of one setting held together: the same
+    fused and skipped counts, loops and ICP decisions; poses within
+    STREAM_FUSED_POSE_ATOL."""
+    dR = max(float(np.abs(a[0] - b[0]).max())
+             for a, b in zip(fused.poses, step.poses))
+    dt = max(float(np.abs(a[1] - b[1]).max())
+             for a, b in zip(fused.poses, step.poses))
+    out = {"fused": [fused.frames_processed, step.frames_processed],
+           "skipped": [fused.frames_skipped, step.frames_skipped],
+           "loops": [fused.loop_edges, step.loop_edges],
+           "icp_frames": [fused.icp_frames, step.icp_frames],
+           "pose_R_max_abs_diff": dR, "pose_t_max_abs_diff": dt,
+           "scale": [fused.scale, step.scale],
+           "voxels": [int(offset_map_size(fused.map)),
+                      int(offset_map_size(step.map))]}
+    if (out["fused"][0] != out["fused"][1]
+            or out["skipped"][0] != out["skipped"][1]
+            or fused.loop_edges != step.loop_edges
+            or fused.icp_frames != step.icp_frames
+            or len(fused.poses) != len(step.poses)):
+        raise AssertionError(f"stream_fused_path {name}: the routes "
+                             f"disagree: {out}")
+    return out
+
+
+def programs_of_cache() -> list:
+    import txr_torch.pipelines.streaming as st
+
+    return [p for step in st._FUSED_STEP_CACHE.values()
+            for p in step.programs]
+
+
+def graph_record(programs: list) -> dict:
+    """Capture time, graph pool, replays and hand-kernel launches (the
+    warm-up call's and per replay times the replays) of some programs."""
+    launches = {}
+    for p in programs:
+        for k, n in p.device_launches().items():
+            launches[k] = launches.get(k, 0) + n
+    return {"programs": [{"name": p.name, "capture_s": p.capture_s,
+                          "pool_bytes": p.pool_bytes, "replays": p.replays,
+                          "launches_per_replay": {k: n for k, n in
+                                                  p.launches.items() if n}}
+                         for p in programs],
+            "device_launches": launches}
+
+
+def replay_against_eager(program) -> dict:
+    """One eager call of a captured step against one replay on the same
+    inputs (its static inputs as they stand): every output bit for bit."""
+    want = [t.clone() for t in program.eager(*program.inputs)]
+    got = program(*program.inputs)
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if g.shape != w.shape or not torch.equal(
+               g.reshape(-1).view(torch.uint8),
+               w.reshape(-1).view(torch.uint8))]
+    if bad:
+        raise AssertionError(f"stream_fused_path: a replay of "
+                             f"{program.name} differs from its eager call "
+                             f"in outputs {bad}")
+    return {"program": program.name, "outputs": len(want),
+            "bit_equal": True}
+
+
+def pair_step_graphed(scene: dict) -> dict:
+    """One odometry pair's ``pair_step`` (frames 0 and 1, SIFT at the
+    stream's settings) eager and as a replay of its own CUDA graph: wall
+    ms a call (3 calls, host clock, ending in a sync), and one eager call's
+    launches and device ms under the profiler."""
+    from txr_torch.pipelines.stream_step import GraphedProgram
+
+    det = SIFTDetector(n_features=3000, capacity=4096)
+    f0, f1 = (det.detect(scene["bgr"][i]) for i in (0, 1))
+    idx2, ok = match_l2_ratio(f0.desc, f1.desc, f0.mask, f1.mask, 0.75)
+    K = torch.tensor(np.array([[SFM_K[0], 0, SFM_K[2]], [0, SFM_K[1],
+                                                          SFM_K[3]],
+                               [0, 0, 1]], np.float32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prio = torch.rand((2, 1024, 4096), generator=gen, device="cuda")
+    args = (f0.uv, f1.uv[idx2], ok, prio)
+
+    def fn(a, b, m, p):
+        return pair_step(a, b, m, K, None, 2.0, 0.1, 600.0,
+                         priorities=(p[0], p[1]))
+
+    prog = GraphedProgram(fn, "pair_step")
+    prog(*args)
+    launches, device_ms, _ = count_kernels(lambda: prog.eager(*args))
+    out = {"launches": launches, "device_ms": device_ms}
+    for name, call in (("eager", lambda: prog.eager(*args)),
+                       ("replay", lambda: prog(*args))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    got, want = prog(*args), prog.eager(*args)
+    out["replay_bit_equal"] = all(torch.equal(g, w)
+                                  for g, w in zip(got, want))
+    if not out["replay_bit_equal"]:
+        raise AssertionError(f"pair_step: a replay differs from the eager "
+                             f"call: {out}")
+    return out
+
+
+def stream_fused_path(stepwise=None) -> dict:
+    """reconstruction_torch.py's fused stream on the card. Run A': run A's
+    scene (17 frames of 1080 x 1920, STREAM_CFG) through the per-frame fused
+    step against the stepwise route on the same draws (stream_path's runs,
+    ``stepwise``, or its own when None), closure off and on, and both once
+    more at the radius at which ICP is accepted; a replay against the eager
+    step; the steady state under the sync debug mode; frames/s of the three
+    routes; one profiled run; pair_step eager and graphed. Run B: the CLI at
+    its defaults (the batched fused route); with --no-fused it is
+    stream_path's run B."""
+    import txr_torch.pipelines.streaming as st
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    dev = torch.device("cuda")
+    scene = two_plane_scene(SFM_H, SFM_W, SFM_K, len(STREAM_CAMS), dev,
+                            cams=STREAM_CAMS)
+    rel = scene["depth"] / SFM_SCENE["depth_div"]
+    one, batched = SceneDepthModel(rel, 1), SceneDepthModel(
+        rel, STREAM_FUSED_BATCH)
+    st._FUSED_STEP_CACHE.clear()
+    part("scene")
+
+    # ---- per-frame fused, closure off: the first run captures the graph,
+    # the second is the steady state under the sync debug mode
+    kernels.reset_launches()
+    cold, wall_cold = fused_stream_run(scene, one, True, False)
+    capture = graph_record(programs_of_cache())
+    part("fused_cold")
+    torch.cuda.reset_peak_memory_stats()
+    f_off, wall_f_off = fused_stream_run(scene, one, True, False,
+                                         sync_from=1)
+    peak_fused = torch.cuda.max_memory_allocated()
+    part("fused_closure_off_sync_checked")
+    if stepwise is None:
+        stepwise = {}
+        for key, closure in (("off", False), ("on", True)):
+            rec, wall = fused_stream_run(scene, one, False, closure)
+            stepwise.update({key: rec, f"wall_{key}": wall})
+        part("stepwise_runs")
+    s_off, wall_s_off = stepwise["off"], stepwise["wall_off"]
+    off = routes_agree("closure off", f_off, s_off)
+    pairs_off, drift_off = stream_truth(scene, f_off.poses)
+
+    # ---- closure on
+    f_on, wall_f_on = fused_stream_run(scene, one, True, True)
+    s_on, wall_s_on = stepwise["on"], stepwise["wall_on"]
+    on = routes_agree("closure on", f_on, s_on)
+    pairs_on, drift_on = stream_truth(scene, f_on.poses)
+    part("fused_closure_on")
+
+    # ---- ICP at the radius at which it is accepted
+    f_icp, _ = fused_stream_run(scene, one, True, False,
+                                icp_max_correspondence=STREAM_ICP_WIDE)
+    s_icp, _ = fused_stream_run(scene, one, False, False,
+                                icp_max_correspondence=STREAM_ICP_WIDE)
+    icp = routes_agree("ICP at 0.1 m", f_icp, s_icp)
+    part("icp_wide_both_routes")
+
+    # ---- a replay of the per-frame step against its eager call
+    step_prog = next(p for p in programs_of_cache()
+                     if p.name == "fused_stream_step")
+    replay = replay_against_eager(step_prog)
+    part("replay_against_eager")
+
+    # ---- batched fused (B 8): cold, then timed; closure on once
+    b_cold, wall_b_cold = fused_stream_run(scene, batched, True, False)
+    b_off, wall_b_off = fused_stream_run(scene, batched, True, False)
+    b_on, wall_b_on = fused_stream_run(scene, batched, True, True)
+    pairs_b, _ = stream_truth(scene, b_off.poses)
+    part("batched")
+
+    # ---- one profiled run of the per-frame fused step (graphs captured)
+    prof = kernel_breakdown(lambda: fused_stream_run(
+        scene, one, True, False, frames=STREAM_PROFILE_FRAMES))
+    part("fused_profiled")
+    pair = pair_step_graphed(scene)
+    part("pair_step_graphed")
+    graphs = graph_record(programs_of_cache())
+    n = len(STREAM_CAMS)
+    err = lambda prs: {  # noqa: E731
+        "worst_rot_err_deg": max(p[0] for p in prs),
+        "worst_t_dir_err_deg": max(p[1] for p in prs)}
+    bad = [(run, p) for run, prs in (("off", pairs_off), ("on", pairs_on),
+                                     ("batched", pairs_b))
+           for p, (r, d) in enumerate(prs)
+           if r > SFM_TOL["rot_deg"] or d > SFM_TOL["t_dir_deg"]]
+    run_a = {
+        "frames": n, "cams": STREAM_CAMS,
+        "frames_per_second": {"stepwise": n / wall_s_off,
+                              "fused_per_frame": n / wall_f_off,
+                              "fused_batched": n / wall_b_off,
+                              "fused_per_frame_cold": n / wall_cold,
+                              "fused_batched_cold": n / wall_b_cold},
+        "closure_on_frames_per_second": {
+            "stepwise": n / wall_s_on, "fused_per_frame": n / wall_f_on,
+            "fused_batched": n / wall_b_on},
+        "host_reads_per_frame": {"fused_per_frame": f_off.drains / n,
+                                 "fused_per_frame_closure_on":
+                                 f_on.drains / n,
+                                 "fused_batched": b_off.drains / n},
+        "closure_off": dict(off, **err(pairs_off),
+                            end_drift_units=drift_off),
+        "closure_on": dict(on, **err(pairs_on), end_drift_units=drift_on,
+                           loops_closed=f_on.loops_closed),
+        "icp_at_0.1_m": dict(icp, icp_accepted=[f_icp.icp_accepted,
+                                                s_icp.icp_accepted]),
+        "batched": {"fused": b_off.frames_processed,
+                    "skipped": b_off.frames_skipped, **err(pairs_b),
+                    "voxels": int(offset_map_size(b_off.map)),
+                    "closure_on_loops": b_on.loops_closed,
+                    "closure_on_fused": b_on.frames_processed},
+        "sync_debug_error_between_drains": True,
+        "replay_against_eager": replay,
+        "capture": capture, "graphs": graphs,
+        "peak_memory_bytes_fused_per_frame": peak_fused,
+        "profiled": dict(prof, frames=STREAM_PROFILE_FRAMES, closure=False),
+        "pair_step_eager_and_graphed": pair,
+        "device_busy_share_profiled_call": prof["device_ms"]
+        / prof["wall_ms_under_profiler"],
+        # its device time a frame over the timed closure-off run's wall a
+        # frame (the same seeded frames)
+        "profiled_device_ms_per_frame_over_closure_off_wall":
+        prof["device_ms"] / STREAM_PROFILE_FRAMES / (wall_f_off * 1e3 / n)}
+    if (bad or f_off.frames_processed != n or f_on.loops_closed < 1
+            or f_icp.icp_accepted < 1 or b_off.frames_processed != n
+            or off["pose_R_max_abs_diff"] > STREAM_FUSED_POSE_ATOL
+            or off["pose_t_max_abs_diff"] > STREAM_FUSED_POSE_ATOL
+            or on["pose_R_max_abs_diff"] > STREAM_FUSED_POSE_ATOL
+            or on["pose_t_max_abs_diff"] > STREAM_FUSED_POSE_ATOL
+            or capture["device_launches"].get("offset_reduce", 0) < n):
+        raise AssertionError(f"stream_fused_path run A': pairs off SFM_TOL "
+                             f"{bad}: {run_a}")
+    run_b_step = stepwise.get("run_b")
+    del one, batched, cold, f_off, s_off, f_on, s_on, f_icp, s_icp, stepwise
+    del b_cold, b_off, b_on, step_prog
+    st._FUSED_STEP_CACHE.clear()
+
+    # ---- Run B: the CLI at its defaults (batched fused); with --no-fused
+    frames = list(scene["bgr"][:STREAM_CLI_FRAMES].cpu().numpy())
+    del scene, rel
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        run_b = stream_cli_run(frames, td, warm=True)
+    run_b["graphs"] = graph_record(programs_of_cache())
+    # the depth forward's graph (attention and tail kernels inside) against
+    # its eager call on its last inputs
+    run_b["replay_against_eager"] = replay_against_eager(next(
+        p for p in programs_of_cache() if p.name == "fused_stream_batch_head"))
+    st._FUSED_STEP_CACHE.clear()
+    part("run_b_cli_fused")
+    if run_b_step is None:
+        with tempfile.TemporaryDirectory() as td:
+            run_b_step = stream_cli_run(frames, td, ["--no-fused"])
+        part("run_b_cli_no_fused")
+    launches = run_b["graphs"]["device_launches"]
+    path_launches = {k: graphs["device_launches"].get(k, 0)
+                     + launches.get(k, 0) for k in kernels.launches}
+    if not (run_b["route"] == "fused_batched"
+            and run_b_step["route"] == "stepwise"
+            and all(launches.get(k, 0) > 0
+                    for k in ("attention", "dpt_tail", "offset_reduce"))):
+        raise AssertionError(f"stream_fused_path run B: {run_b}, "
+                             f"{run_b_step}")
+    out = {"phase": "stream_fused_path", "input": [SFM_H, SFM_W],
+           "sfm_tolerance": SFM_TOL, "run_a": run_a, "run_b": run_b,
+           "run_b_no_fused": run_b_step,
+           # launches on the card: each graph's per replay times its
+           # replays and its warm-up calls' (run A' and B)
+           "launches": path_launches,
+           "launches_over_steps": 1,
            "phase_wall_s": time.perf_counter() - t_phase,
            "phase_parts_s": parts, "ok": True}
     emit(out)
@@ -3680,14 +4114,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     erun = enhanced_cli_path()
     torch.cuda.empty_cache()
-    strun = stream_path()
+    strun, stepwise = stream_path()
+    torch.cuda.empty_cache()
+    sfrun = stream_fused_path(stepwise)
+    del stepwise
     torch.cuda.empty_cache()
     # row 3's third entry: the scan at 8 columns on LSD's inputs
     scan_row["lsd_8_columns"] = erun["scan_8_columns"]
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
             "odd_heads_path": orun, "depth_cli_path": crun,
             "sfm_path": srun, "fusion_cli_path": frun,
-            "enhanced_cli_path": erun, "stream_path": strun}
+            "enhanced_cli_path": erun, "stream_path": strun,
+            "stream_fused_path": sfrun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counters = k.get("counters", [k["name"]])

@@ -11,8 +11,10 @@ the packed voxel map (the fused-reduce scan kernel); keyframes with
 appearance-gated loop closure and SE(3) pose-graph optimisation; at the
 end a PLY and a 2D occupancy grid (PGM + YAML).
 
-The port runs the stepwise per-frame loop, the only one it has so far;
-``--no-fused`` is accepted and changes nothing.
+By default the whole chain of a frame is one step with no host read,
+captured once as a CUDA graph and replayed: a folder runs 8 frames a step
+(the batched fused step), a camera one frame a step. ``--no-fused`` runs
+the stepwise loop, which reads its counts and poses back per frame.
 
 Usage:
     python reconstruction_torch.py --mode folder --input ./my_images/ --output scene.ply
@@ -103,7 +105,8 @@ def main(argv=None, device=None) -> int:
                           max_depth=args.max_depth)
     rec = StreamingReconstructor(
         intrinsics=source.intrinsics, depth_model=model, config=cfg,
-        use_icp=not args.no_icp, metric_depth=args.metric, device=dev,
+        use_icp=not args.no_icp, metric_depth=args.metric,
+        fused=not args.no_fused, device=dev,
     )
     try:
         n = rec.run(source, max_frames=args.max_frames)

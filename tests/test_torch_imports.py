@@ -65,7 +65,8 @@ def test_package_has_the_slice_modules():
             "txr_torch.pipelines.enhanced_pipeline",
             "txr_torch.geometry.icp", "txr_torch.geometry.pose_graph",
             "txr_torch.geometry.appearance", "txr_torch.fusion.occupancy",
-            "txr_torch.pipelines.streaming"}
+            "txr_torch.pipelines.streaming",
+            "txr_torch.pipelines.stream_step"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",

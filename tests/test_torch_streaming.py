@@ -473,9 +473,10 @@ def test_cli_parser_surface_equal_reconstruction_py(monkeypatch):
 
 def test_cli_main_writes_ply_and_grid(tmp_path, monkeypatch, caplog):
     """main(argv, device="cpu") at the CLI's defaults (v2 vits, seeded
-    random weights; the model at input size 70 to keep the CPU run
-    short) over three JPEG frames: the PLY holds the map's voxels and the
-    grid reads back."""
+    random weights; the model at input size 70 and ICP on 512 points to
+    keep the CPU run short) over three JPEG frames, then with --no-fused: the defaults take
+    the batched fused step and --no-fused the stepwise loop; each PLY holds
+    its map's voxels and each grid reads back."""
     from txr_torch.models import depth_anything
 
     frames = tmp_path / "frames"
@@ -491,25 +492,42 @@ def test_cli_main_writes_ply_and_grid(tmp_path, monkeypatch, caplog):
 
     class Recorded(tst.StreamingReconstructor):
         def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
+            # ICP on 512 sources and 2,048 map samples (4,096 and 16,384 by
+            # default): the fused step runs ICP's dense masked search on
+            # every frame, which is slow on the CPU
+            super().__init__(*a, icp_sample=512, **kw)
             built["rec"] = self
 
     monkeypatch.setattr(depth_anything, "DepthAnythingModel", SmallModel)
     monkeypatch.setattr(tst, "StreamingReconstructor", Recorded)
-    out = tmp_path / "scene.ply"
-    with caplog.at_level(logging.INFO, logger=tst.__name__):
-        rc = _load("reconstruction_torch.py").main(
-            ["--input", str(frames), "--output", str(out)], device="cpu")
-    assert rc == 0
-    assert built["model"]["encoder"] == "vits"
-    rec = built["rec"]
-    assert rec.frames_processed == 3
-    assert any("stepwise" in r.getMessage() for r in caplog.records)
-    xyz, _ = read_ply(str(out))
-    assert len(xyz) == int(offset_map_size(rec.map))
-    pgm = (tmp_path / "scene_grid.pgm").read_bytes()
-    assert pgm.startswith(b"P5\n# txr occupancy grid\n")
-    yaml = (tmp_path / "scene_grid.yaml").read_text()
-    assert yaml.startswith("image: scene_grid.pgm\nresolution: 0.05\n")
-    cols, rows = map(int, pgm.split(b"\n")[2].split())
-    assert len(pgm) == len(pgm.rsplit(b"255\n", 1)[0]) + 4 + rows * cols
+    recs = {}
+    for name, extra, log in (
+            ("fused", [], "Streaming fused: one step per 8 frames"),
+            ("stepwise", ["--no-fused"], "Streaming stepwise")):
+        out = tmp_path / name / "scene.ply"
+        out.parent.mkdir()
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=tst.__name__):
+            rc = _load("reconstruction_torch.py").main(
+                ["--input", str(frames), "--output", str(out), *extra],
+                device="cpu")
+        assert rc == 0
+        assert built["model"]["encoder"] == "vits"
+        rec = recs[name] = built["rec"]
+        assert rec.fused == (name == "fused")
+        assert rec.route == ("fused_batched" if name == "fused"
+                             else "stepwise")
+        assert any(log in r.getMessage() for r in caplog.records)
+        assert rec.frames_processed == 3
+        xyz, _ = read_ply(str(out))
+        assert len(xyz) == int(offset_map_size(rec.map))
+        pgm = (out.parent / "scene_grid.pgm").read_bytes()
+        assert pgm.startswith(b"P5\n# txr occupancy grid\n")
+        yaml = (out.parent / "scene_grid.yaml").read_text()
+        assert yaml.startswith("image: scene_grid.pgm\nresolution: 0.05\n")
+        cols, rows = map(int, pgm.split(b"\n")[2].split())
+        assert len(pgm) == len(pgm.rsplit(b"255\n", 1)[0]) + 4 + rows * cols
+    # the routes' SIFT differ here (the stepwise route's "auto" backend is
+    # OpenCV's on the CPU; the fused step always runs the device SIFT), so
+    # their poses are held together in test_torch_stream_step.py instead
+    assert recs["fused"].drains == 1 and recs["stepwise"].drains == 0

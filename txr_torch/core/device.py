@@ -28,3 +28,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             f"device {device!r} was requested but no CUDA device is "
             "available")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(a, device: torch.device) -> torch.Tensor:
+    """The array ``a`` as a tensor on ``device``, copied there once per
+    content and device and kept for the process.
+
+    A copy from host memory synchronises the card, so it may not happen
+    inside a captured CUDA graph: a function that a graph captures takes its
+    host-made constants (filter taps, lookup tables) from here, and the
+    eager call made before the capture puts them on the card."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    key = (a.dtype.str, a.shape, a.tobytes(), str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.from_numpy(a.copy()).to(device)
+        _CONSTANTS[key] = t
+    return t

@@ -10,12 +10,17 @@ Arandjelovic & Zisserman, "All about VLAD", CVPR 2013) and the
 concatenation is L2-normalised. Similarity is a dot product in [-1, 1], so
 scoring the whole keyframe history is one small host product. The anchors
 come from a fixed seed, so sketches compare across sessions and processes.
+``appearance_sketch_device`` computes the same sketch on the descriptors'
+device, for the fused stream, whose keyframe descriptors stay there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from txr_torch.core.device import device_constant
+from txr_torch.core.precision import f32_dots
 
 N_ANCHORS = 16
 
@@ -70,6 +75,36 @@ def appearance_sketch(desc, mask) -> np.ndarray:
     if n > 1e-12:
         flat = flat / n
     return flat.astype(np.float32)
+
+
+@f32_dots
+def appearance_sketch_device(desc: torch.Tensor, mask: torch.Tensor
+                             ) -> torch.Tensor:
+    """``appearance_sketch`` on the descriptors' device, the counterpart of
+    ``txr``'s ``appearance_sketch_jax``: (capacity, D) descriptors + mask ->
+    (N_ANCHORS*D,) f32 sketch, still on the device.
+
+    The per-anchor residual sums are a one-hot product in place of
+    ``np.add.at``, so the result matches the host sketch up to f32
+    summation order; nothing is read back, and only the sketch need cross
+    to the host (the descriptors stay where they are)."""
+    desc = desc.to(torch.float32)
+    dim = desc.shape[1]
+    anchors = device_constant(_anchors(dim), desc.device)     # (K, D)
+    tiny = desc.new_full((), 1e-12)
+    d = desc / torch.maximum(torch.linalg.vector_norm(desc, dim=1,
+                                                      keepdim=True), tiny)
+    assign = torch.argmax(d @ anchors.T, dim=1)               # (N,)
+    k = torch.arange(N_ANCHORS, device=desc.device)
+    onehot = ((assign[:, None] == k[None, :]).to(torch.float32)
+              * mask.to(torch.float32)[:, None])              # (N, K)
+    # per anchor k: the sum over its rows of (d_i - anchor_k)
+    sk = onehot.T @ d - onehot.sum(dim=0)[:, None] * anchors  # (K, D)
+    cn = torch.linalg.vector_norm(sk, dim=1, keepdim=True)
+    sk = torch.where(cn > 1e-12, sk / torch.maximum(cn, tiny), sk)
+    flat = sk.reshape(-1)
+    n = torch.linalg.vector_norm(flat)
+    return torch.where(n > 1e-12, flat / torch.maximum(n, tiny), flat)
 
 
 def appearance_scores(sketches: np.ndarray, query: np.ndarray) -> np.ndarray:

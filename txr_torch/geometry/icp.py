@@ -5,10 +5,13 @@ gets it from RTAB-Map's odometry, slam.launch.py:105-123): a fixed number
 of Gauss-Newton steps, each matching every source point to its nearest
 target point (chunked distance products against a masked target cloud with
 precomputed normals), weighting out pairs beyond ``max_correspondence``,
-and solving the 6x6 normal system in f32. Each function reads one count
-back to the host (the set target rows, which alone take part in the
-search); the solve is ``torch.linalg.solve_ex`` (no error check), and the
-loop has no early exit.
+and solving the 6x6 normal system in f32. By default each function reads
+one count back to the host (the set target rows, which alone take part in
+the search); with ``compact=False`` it reads nothing back and searches
+every row, masked rows pushed out of reach, which finds the same
+neighbours in the same order (the fused streaming step takes that route).
+The solve is ``torch.linalg.solve_ex`` (no error check), and the loop has
+no early exit.
 
 Nearest neighbours keep ``jax.lax.top_k``'s order: the smallest distance
 first and, among equal distances, the lower index first. ``top_k_smallest``
@@ -52,16 +55,18 @@ def _valid_rows(mask: torch.Tensor, least: int):
 
 
 @f32_dots
-def estimate_normals(xyz: torch.Tensor, mask: torch.Tensor, k: int = 8
-                     ) -> torch.Tensor:
+def estimate_normals(xyz: torch.Tensor, mask: torch.Tensor, k: int = 8,
+                     compact: bool = True) -> torch.Tensor:
     """Per-point normals from the k-NN covariance's smallest eigenvector.
 
     Exact kNN through dense distance rows (``NORMAL_ROWS`` at a time), for
     keyframe-sized clouds of a few 10^4 points. Masked points get zero
-    normals. Only the set rows take part when there are at least k of them
-    (a masked point is never among a set point's k nearest then), which
-    gives the same neighbours in the same order."""
-    keep = _valid_rows(mask, k)
+    normals. With ``compact``, only the set rows take part when there are
+    at least k of them (a masked point is never among a set point's k
+    nearest then), which gives the same neighbours in the same order as
+    the masked search over every row that ``compact=False`` runs without a
+    host read."""
+    keep = _valid_rows(mask, k) if compact else None
     pts = xyz if keep is None else xyz[keep]
     n = pts.shape[0]
     sq = torch.sum(pts * pts, dim=-1)
@@ -72,13 +77,12 @@ def estimate_normals(xyz: torch.Tensor, mask: torch.Tensor, k: int = 8
         d2 = sq[lo:hi, None] + sq[None, :] - 2.0 * (blk @ pts.T)
         if keep is None:
             d2 = torch.where(mask[None, :], d2, _BIG)
-        r = torch.arange(blk.shape[0], device=xyz.device)
-        d2[r, r + lo] = 0.0                          # include self
+        d2.diagonal(offset=lo).fill_(0.0)            # include self
         idx.append(top_k_smallest(d2, k))
     nbrs = pts[torch.cat(idx)]                       # (n, k, 3)
     mean = torch.mean(nbrs, dim=1, keepdim=True)
     c = nbrs - mean
-    cov = torch.einsum("nki,nkj->nij", c, c) / xyz.new_tensor(float(k))
+    cov = torch.einsum("nki,nkj->nij", c, c) / xyz.new_full((), float(k))
     normals = smallest_eigvec(cov)
     if keep is None:
         return torch.where(mask[:, None], normals, 0.0)
@@ -92,17 +96,20 @@ def icp_point_to_plane(src_xyz: torch.Tensor, src_mask: torch.Tensor,
                        tgt_xyz: torch.Tensor, tgt_normals: torch.Tensor,
                        tgt_mask: torch.Tensor, R_init: torch.Tensor,
                        t_init: torch.Tensor, iterations: int = 10,
-                       max_correspondence: float = 0.1, chunk: int = 1024):
+                       max_correspondence: float = 0.1, chunk: int = 1024,
+                       compact: bool = True):
     """Register src onto tgt. Returns 0-d / small tensors (R, t, rmse,
     inlier_frac) with x_tgt ~ R @ x_src + t.
 
-    The nearest-target search runs over the set target rows alone when
-    there is one (a masked target is never nearer than a set one)."""
+    With ``compact`` the nearest-target search runs over the set target
+    rows alone when there is one (a masked target is never nearer than a
+    set one); ``compact=False`` searches every row with the masked ones
+    pushed out of reach and reads nothing back."""
     ns = src_xyz.shape[0]
     pad = (-ns) % chunk
     src_p = torch.nn.functional.pad(src_xyz, (0, 0, 0, pad))
     srcm_p = torch.nn.functional.pad(src_mask, (0, pad))
-    keep = _valid_rows(tgt_mask, 1)
+    keep = _valid_rows(tgt_mask, 1) if compact else None
     if keep is not None:
         tgt_xyz, tgt_normals = tgt_xyz[keep], tgt_normals[keep]
         tgt_mask = tgt_mask[keep]

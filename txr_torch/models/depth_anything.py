@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from txr_torch.core.device import resolve_device
+from txr_torch.core.device import device_constant, resolve_device
 from txr_torch.core.intrinsics import CameraIntrinsics
 from txr_torch.models.dpt import DPTConfig, DPTHead
 from txr_torch.models.vit import VIT_PRESETS, ViTConfig, ViTEncoder
@@ -239,8 +239,10 @@ class DepthAnythingModel:
         and batched paths: (B, H, W, 3) uint8 RGB -> (B, out_h, out_w)."""
         x = rgb_u8.to(torch.float32) / 255.0
         x = resize_bicubic(x, in_h, in_w, align_corners=False)
-        mean = x.new_tensor(IMAGENET_MEAN)
-        std = x.new_tensor(IMAGENET_STD)
+        mean = device_constant(np.asarray(IMAGENET_MEAN, np.float32),
+                               x.device)
+        std = device_constant(np.asarray(IMAGENET_STD, np.float32),
+                              x.device)
         x = ((x - mean) / std).to(self.param_dtype)
         depth = self.model(x).to(torch.float32)          # (B, in_h, in_w)
         return resize_bilinear(depth[..., None], out_h, out_w,

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from txr_torch.core.device import device_constant
+
 # Orientation / descriptor sample-grid side (J x J samples per keypoint).
 # TXR_SIFT_GRID overrides it, read at import as in ``txr``.
 _SAMPLE_GRID = int(os.environ.get("TXR_SIFT_GRID", "12"))
@@ -61,7 +63,7 @@ def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     (cv2.GaussianBlur)."""
     if sigma <= 0:
         return img
-    k = torch.from_numpy(_gauss_kernel(sigma)).to(img.device)
+    k = device_constant(_gauss_kernel(sigma), img.device)
     r = (k.shape[0] - 1) // 2
     x = F.pad(img[None, None], (0, 0, r, r), mode="reflect")
     x = F.conv2d(x, k.view(1, 1, -1, 1))
@@ -89,7 +91,7 @@ def _blur_multi(img: torch.Tensor, sigmas) -> torch.Tensor:
             k = _gauss_kernel(s)
             ri = (k.shape[0] - 1) // 2
             K[i, r - ri:r + ri + 1] = k
-    Kt = torch.from_numpy(K).to(img.device)
+    Kt = device_constant(K, img.device)
     x = F.pad(img[None, None], (0, 0, r, r), mode="reflect")
     v = F.conv2d(x, Kt.view(L, 1, -1, 1))                 # (1, L, H, W)
     v = F.pad(v, (r, r, 0, 0), mode="reflect")
@@ -338,9 +340,9 @@ def _sift_impl(gray: torch.Tensor, capacity: int, n_octaves: int,
         total += (S + 3) * ho * wo
     flat_grad = torch.cat(grads, dim=0)
     del grads
-    off_tab = torch.from_numpy(level_offset.reshape(-1)).to(dev)
-    h_tab = torch.from_numpy(level_h).to(dev)
-    w_tab = torch.from_numpy(level_w).to(dev)
+    off_tab = device_constant(level_offset.reshape(-1), dev)
+    h_tab = device_constant(level_h, dev)
+    w_tab = device_constant(level_w, dev)
 
     base_idx = off_tab[(oct_i * (S + 3) + s_i).clamp(0, off_tab.numel() - 1)]
     hh = h_tab[oct_i.clamp(0, n_octaves - 1)]

@@ -1,5 +1,5 @@
-"""Streaming SLAM-like reconstruction, the counterpart of the stepwise path
-of ``txr/pipelines/streaming.py`` (behind ``reconstruction_torch.py``).
+"""Streaming SLAM-like reconstruction, the counterpart of
+``txr/pipelines/streaming.py`` (behind ``reconstruction_torch.py``).
 
 Per frame, on the device:
 
@@ -15,6 +15,14 @@ with MinInliers 15 (slam.launch.py:115-121): the feature pose when the
 matches carry it; ICP against the map refines it, or replaces it when
 matching fails. With ICP off, a failed frame is skipped and the stream
 goes on.
+
+``run`` takes one of three routes, as ``txr``'s does. With ``fused`` set and
+the port's ``DepthAnythingModel`` as the model, the whole chain of a frame
+is one step with no host read (``pipelines/stream_step.py``; on the card a
+CUDA graph replayed per frame): an offline source runs
+``cfg.stream_batch`` frames a step (``_run_fused_batched``), a live one a
+frame a step (``_run_fused``). Otherwise, and always in ``process_frame``,
+the stepwise loop runs, reading its counts and poses back per frame.
 
 Loop closure (rtabmap_slam's role, slam.launch.py:126-145): every
 ``keyframe_every`` fused frames a keyframe keeps its features, an
@@ -54,20 +62,29 @@ from txr_torch.fusion.offset_map import (OffsetVoxelMap, create_offset_map,
                                          offset_map_insert, offset_map_points,
                                          offset_map_size)
 from txr_torch.geometry.appearance import (appearance_scores,
-                                           appearance_sketch)
+                                           appearance_sketch,
+                                           appearance_sketch_device)
 from txr_torch.geometry.features import (Features, SIFTDetector,
                                          match_features)
 from txr_torch.geometry.icp import estimate_normals, icp_point_to_plane
 from txr_torch.geometry.pose_graph import optimize_pose_graph
 from txr_torch.geometry.scale import clamp_scale, ema_scale, estimate_scale
 from txr_torch.io.ply import write_ply
+from txr_torch.models.depth_anything import DepthAnythingModel
 from txr_torch.ops.backproject import backproject_world
 from txr_torch.ops.matching import match_l2_ratio
 from txr_torch.pipelines.fusion_pipeline import _compact, pair_step
+from txr_torch.pipelines.stream_step import (MIN_INLIERS, PAIR_HYPOTHESES,
+                                             FusedStreamState,
+                                             build_fused_stream_batch_step,
+                                             build_fused_stream_step,
+                                             init_fused_state, read_rows)
 
 logger = logging.getLogger(__name__)
 
-MIN_INLIERS = 15  # rtabmap rgbd_odometry Vis/MinInliers (slam.launch.py:115)
+# Fused steps (with their CUDA graphs), shared by every reconstructor whose
+# model, frame shape and settings give the same step (see _step_key).
+_FUSED_STEP_CACHE: dict = {}
 # Loop pairs are distant frames: a few hundred ratio-test matches survive
 # of the feature capacity, so verification runs on the first VCAP matched
 # rows (matched rows first, each group in index order) with 512 hypotheses.
@@ -81,12 +98,24 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a).to(device)
 
 
+class _Row:
+    """One frame's view of a batched step's diagnostics, for
+    ``_maybe_keyframe_fused``."""
+
+    def __init__(self, diag, i: int):
+        self.uv, self.desc = diag.uv[i], diag.desc[i]
+        self.fmask, self.depth = diag.fmask[i], diag.depth[i]
+
+
 class StreamingReconstructor:
     """Incremental frame-by-frame reconstruction into a voxel map.
 
     device: where the map, features and frames live (None: the CUDA
     device, which must be present); SIFT runs on it (OpenCV's on the CPU
-    when installed, ``geometry/features.py:resolve_backend``).
+    when installed, ``geometry/features.py:resolve_backend``; the fused
+    step always runs the device SIFT).
+    fused: ``run`` takes the fused step when the model is the port's
+    ``DepthAnythingModel`` (see the module docstring).
     """
 
     def __init__(
@@ -99,6 +128,7 @@ class StreamingReconstructor:
         feature_capacity: int = 4096,
         icp_sample: int = 4096,
         verbose: bool = True,
+        fused: bool = True,
         device=None,
         priorities: Optional[Priorities] = None,
     ):
@@ -127,12 +157,24 @@ class StreamingReconstructor:
         self.priorities = priorities
         self.frames_processed = 0
         self.frames_skipped = 0
-        self.icp_accepted = 0
+        self.icp_frames: List[int] = []   # poses that ICP corrected
         # Loop closure state: keyframes carry features + a camera-frame
         # cloud so the map can be re-fused after graph optimisation.
         self.keyframes: List[dict] = []
         self.loops_closed = 0
         self.loop_edges: List[Tuple[int, int]] = []
+        self._last_loop_delta = None
+        # Fused mode: the device state of the fused step, kept in step with
+        # the host's view when process_frame or a closure changes that
+        self.fused = fused
+        self._fused_state: Optional[FusedStreamState] = None
+        self.drains = 0             # host reads of the fused runs
+        self.route: Optional[str] = None    # the route run() took last
+
+    @property
+    def icp_accepted(self) -> int:
+        """Frames whose pose ICP corrected."""
+        return len(self.icp_frames)
 
     def _log(self, msg):
         if self.verbose:
@@ -388,6 +430,12 @@ class StreamingReconstructor:
                 Rp, tp = self.poses[p]
                 self.poses[p] = ((Rp @ Rd).astype(np.float32),
                                  (Rp @ td + tp).astype(np.float32))
+        # The last keyframe's right-composed correction, for a caller that
+        # holds poses chained past this closure (the batched drain applies
+        # it to the rest of its batch)
+        Ro, to = nodes[-1]
+        Rn, tn = opt[-1]
+        self._last_loop_delta = (Ro.T @ Rn, Ro.T @ (tn - to))
         thr = self.cfg.loop_rebuild_min_correction
         if thr is None:
             thr = float(self.map.voxel_size)
@@ -498,6 +546,7 @@ class StreamingReconstructor:
                 if not self.use_icp:
                     self.frames_skipped += 1
                     self._prev_features = feats
+                    self._resync_fused(feats, fused=False)
                     return False
                 R_prev, t_prev = self.poses[-1]
                 R, t = R_prev.copy(), t_prev.copy()  # constant position
@@ -516,7 +565,7 @@ class StreamingReconstructor:
             if rmse is not None and (not np.allclose(R2, R)
                                      or not np.allclose(t2, t)):
                 R, t = R2, t2
-                self.icp_accepted += 1
+                self.icp_frames.append(len(self.poses))
                 ps = self._backproject(depth, rgb, R, t)
 
         self.map = offset_map_insert(self.map, ps)
@@ -525,30 +574,352 @@ class StreamingReconstructor:
         self._prev_features = feats
         self.frames_processed += 1
         self._maybe_keyframe(feats, depth, rgb)
+        self._resync_fused(feats, fused=True)
         return True
+
+    def _resync_fused(self, feats: Features, fused: bool) -> None:
+        """After a stepwise frame, bring the fused state (if a fused run
+        made one) up to the host's view: the map, the last pose (a closure
+        may have corrected it), the scale, the frames fused and this frame's
+        features, so that a later fused run goes on from here."""
+        st = self._fused_state
+        if st is None:
+            return
+        if fused:
+            st = self._with_host_pose(st)._replace(
+                scale=torch.tensor(self.scale, dtype=torch.float64,
+                                   device=self.device),
+                n_fused=st.n_fused + 1)
+        if (feats.desc.shape == st.prev_desc.shape
+                and feats.desc.dtype == torch.float32):
+            st = st._replace(prev_uv=feats.uv, prev_desc=feats.desc,
+                             prev_mask=feats.mask)
+        self._fused_state = st
+
+    # ------------------------------------------------------- fused hot loop
+
+    def _with_host_pose(self, st: FusedStreamState) -> FusedStreamState:
+        """The fused state with the host's map and last pose."""
+        R_l, t_l = self.poses[-1]
+        return st._replace(vm=self.map, R=_to_device(R_l, self.device),
+                           t=_to_device(t_l, self.device))
+
+    def _fused_state_now(self) -> FusedStreamState:
+        """The fused state, made at the first fused run: empty, or, after
+        stepwise frames, holding their map, last pose, scale, count and
+        features."""
+        if self._fused_state is None:
+            st = init_fused_state(self.map.khi.shape[0],
+                                  float(self.map.voxel_size),
+                                  self.detector.capacity, self.device)
+            if self.poses:
+                st = self._with_host_pose(st)._replace(
+                    scale=torch.tensor(self.scale, dtype=torch.float64,
+                                       device=self.device),
+                    n_fused=torch.tensor(len(self.poses), dtype=torch.int32,
+                                         device=self.device))
+            self._fused_state = st
+            if self._prev_features is not None:
+                self._resync_fused(self._prev_features, fused=False)
+        return self._fused_state
+
+    def _finish_fused(self, state: FusedStreamState) -> None:
+        self._fused_state = state
+        self.map = state.vm
+        # a stepwise frame after this run matches against the last frame
+        self._prev_features = Features(state.prev_uv, state.prev_desc,
+                                       state.prev_mask, "sift")
+
+    def _step_key(self, h: int, w: int, b: Optional[int] = None):
+        """Everything that shapes the step (and its captured graphs): keyed
+        at module level (_FUSED_STEP_CACHE), so a second reconstructor over
+        the same model and settings replays the same graphs instead of
+        capturing its own. The step holds the model, so its id stays
+        unique while cached."""
+        m, d = self.depth_model, self.detector
+        return (id(m), m.version, m.encoder, m.input_size, h, w, b,
+                str(self.device), float(self.intr.fx), float(self.intr.fy),
+                float(self.intr.cx), float(self.intr.cy), d.capacity,
+                d.n_features, d.contrast_threshold, float(d.edge_threshold),
+                d.use_clahe, self.use_icp, self.metric_depth,
+                self.icp_sample, float(self.cfg.min_depth),
+                float(self.cfg.max_depth), int(self.cfg.subsample_factor),
+                int(self.cfg.icp_iterations),
+                float(self.cfg.icp_max_correspondence),
+                int(self.cfg.kf_cloud_points))
+
+    def _step_options(self) -> dict:
+        d = self.detector
+        return dict(feature_capacity=d.capacity, n_features=d.n_features,
+                    contrast_threshold=d.contrast_threshold,
+                    edge_threshold=float(d.edge_threshold),
+                    use_clahe=d.use_clahe, use_icp=self.use_icp,
+                    metric_depth=self.metric_depth,
+                    icp_sample=self.icp_sample, device=self.device)
+
+    def _fused_step_for(self, h: int, w: int):
+        key = self._step_key(h, w)
+        if key not in _FUSED_STEP_CACHE:
+            _FUSED_STEP_CACHE[key] = build_fused_stream_step(
+                self.depth_model, self.intr, self.cfg, h=h, w=w,
+                **self._step_options())
+        return _FUSED_STEP_CACHE[key]
+
+    def _fused_batch_step_for(self, h: int, w: int, b: int):
+        key = self._step_key(h, w, b)
+        if key not in _FUSED_STEP_CACHE:
+            _FUSED_STEP_CACHE[key] = build_fused_stream_batch_step(
+                self.depth_model, self.intr, self.cfg, h=h, w=w, batch=b,
+                kf_cloud_points=self.cfg.kf_cloud_points,
+                **self._step_options())
+        return _FUSED_STEP_CACHE[key]
+
+    def _pair_priorities(self) -> torch.Tensor:
+        """One odometry pair's (2, 1024, capacity) essential and homography
+        priorities, drawn as the stepwise path draws them: two draws of the
+        generator in that order, or one call of ``priorities``."""
+        cap = self.detector.capacity
+        if self.priorities is not None:
+            return self._draw(None, PAIR_HYPOTHESES, cap)
+        out = torch.empty((2, PAIR_HYPOTHESES, cap), dtype=torch.float32,
+                          device=self.device)
+        for k in range(2):
+            torch.rand((PAIR_HYPOTHESES, cap), generator=self.generator,
+                       out=out[k])
+        return out
+
+    def _no_priorities(self) -> torch.Tensor:
+        """A stream's first frame draws nothing; its step takes zeros."""
+        return torch.zeros((2, PAIR_HYPOTHESES, self.detector.capacity),
+                           dtype=torch.float32, device=self.device)
+
+    def _upload(self, frames) -> torch.Tensor:
+        """uint8 frames (numpy or tensor) on the device. From the host they
+        go through pinned memory, asynchronously: a copy from pageable
+        memory would wait for every step enqueued before it."""
+        if isinstance(frames, torch.Tensor):
+            return frames.to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(frames))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _maybe_keyframe_fused(self, diag, rgb: Optional[torch.Tensor] = None,
+                              cloud: Optional[PointSet] = None) -> bool:
+        """Keyframe and loop-closure bookkeeping for one fused frame; the
+        depth and features are read here only. Returns True if a loop
+        closed (the device state must be resynced). ``cloud`` is the
+        batched step's keyframe cloud (else one is back-projected from
+        ``rgb``)."""
+        if not self.cfg.loop_closure:
+            return False
+        if (self.frames_processed - 1) % self.cfg.keyframe_every != 0:
+            return False
+        # the keyframe keeps its own copy of the step's features; only the
+        # (N_ANCHORS * 128,) sketch crosses to the host
+        feats = Features(diag.uv.clone(), diag.desc.clone(),
+                         diag.fmask.clone(), "sift")
+        sketch = appearance_sketch_device(feats.desc, feats.mask
+                                          ).cpu().numpy()
+        loop = self._try_loop_edge(feats, diag.depth, sketch)
+        self.keyframes.append({
+            "pose_idx": len(self.poses) - 1,
+            "features": feats,
+            "sketch": sketch,
+            "cloud": cloud if cloud is not None
+            else self._camera_cloud(diag.depth, rgb),
+        })
+        self._spill_old_keyframes()
+        if loop is not None:
+            self._close_loop(loop[0], loop[1], loop[2])
+            return True
+        return False
+
+    def _take_frame(self, rows, k: int) -> bool:
+        """The host's part of one drained frame: skip it, or append its
+        pose and take its scale. Returns whether it was fused."""
+        if not rows.fused[k]:
+            self.frames_skipped += 1
+            self._log(f"  frame: {int(rows.n_inliers[k])} inliers < "
+                      f"{MIN_INLIERS} - feature odometry failed")
+            return False
+        self.poses.append((rows.R[k], rows.t[k]))
+        self.scale = float(rows.scale[k])
+        self.frames_processed += 1
+        if rows.icp_applied[k]:
+            self.icp_frames.append(len(self.poses) - 1)
+        return True
+
+    def _log_rate(self, start: float, map_size: Callable[[], int]) -> None:
+        if self.frames_processed % 10 == 0:
+            fps = self.frames_processed / (time.time() - start)
+            self._log(f"Fused {self.frames_processed} frames ({fps:.1f} "
+                      f"fps), map: {map_size()} voxels")
+
+    def _log_done(self, start: float) -> None:
+        elapsed = max(time.time() - start, 1e-9)
+        self._log(f"Stream done: {self.frames_processed} fused, "
+                  f"{self.frames_skipped} skipped, "
+                  f"{self.frames_processed / elapsed:.1f} fps")
+
+    @torch.no_grad()
+    def _run_fused(self, source, max_frames: Optional[int] = None) -> int:
+        """One step per frame and one host read per chunk of frames.
+
+        Chunks end on keyframes, so a keyframe's depth and features are read
+        before the next step runs and a closure's corrections reach the
+        device state at the stepwise path's cadence; without ICP a frame may
+        be skipped, which moves the keyframes, so each frame is read on its
+        own."""
+        self._log("Streaming fused: one step a frame")
+        start = time.time()
+        state = self._fused_state_now()
+        if self.cfg.loop_closure:
+            chunk = self.cfg.keyframe_every if self.use_icp else 1
+        else:
+            chunk = 8
+        pend: list = []   # (diag, frame on the device)
+
+        def drain():
+            nonlocal state
+            if not pend:
+                return
+            rows = read_rows(torch.stack([d.row for d, _ in pend]))
+            self.drains += 1
+            resync = False
+            for k, (d, frame) in enumerate(pend):
+                if not self._take_frame(rows, k):
+                    continue
+                self.map = state.vm   # _rebuild_map needs its capacity
+                resync |= self._maybe_keyframe_fused(d, rgb=frame.flip(-1))
+                self._log_rate(start, lambda: int(rows.map_size[k]))
+            if resync:
+                # the closure rebuilt self.map and corrected self.poses on
+                # the host: both go back into the device state
+                state = self._with_host_pose(state)
+            pend.clear()
+
+        try:
+            for i, (bgr, ts, ident) in enumerate(source):
+                if max_frames is not None and i >= max_frames:
+                    break
+                frame = self._upload(bgr)
+                step = self._fused_step_for(*frame.shape[:2])
+                first = not self.poses and not pend
+                prio = self._no_priorities() if first \
+                    else self._pair_priorities()
+                state, diag = step(state, frame, prio)
+                pend.append((diag, frame))
+                # keyframes end a chunk: the first drain after frame 1
+                # (frames_processed == 1), then every `chunk` frames
+                if (len(self.poses) + len(pend)) % chunk == 1 or chunk == 1:
+                    drain()
+        except KeyboardInterrupt:
+            self._log("Interrupted - finalizing map")
+        drain()
+        self._finish_fused(state)
+        self._log_done(start)
+        return self.frames_processed
+
+    @torch.no_grad()
+    def _run_fused_batched(self, source, max_frames: Optional[int] = None
+                           ) -> int:
+        """One step and one host read per ``cfg.stream_batch`` frames
+        (``FusedStreamBatchStep``). Offline sources only: a live camera
+        would wait a batch per frame, so ``run`` keeps those per frame."""
+        B = int(self.cfg.stream_batch)
+        self._log(f"Streaming fused: one step per {B} frames")
+        start = time.time()
+        state = self._fused_state_now()
+
+        def flush(buf):
+            nonlocal state
+            if not buf:
+                return
+            n = len(buf)
+            pad = buf + [buf[-1]] * (B - n)
+            frames = torch.stack([self._upload(f) for f in pad]) \
+                if isinstance(buf[0], torch.Tensor) \
+                else self._upload(np.stack(pad))
+            step = self._fused_batch_step_for(*frames.shape[1:3], B)
+            state, diag = step(state, frames, n, self._pair_priorities,
+                               first=not self.poses)
+            rows = read_rows(diag.rows[:n])
+            self.drains += 1
+            delta = None  # right-composed fix for poses chained past a
+            # closure earlier in this batch
+            for i in range(n):
+                if not self._take_frame(rows, i):
+                    continue
+                if delta is not None:
+                    Rd, td = delta
+                    R_i, t_i = self.poses[-1]
+                    self.poses[-1] = ((R_i @ Rd).astype(np.float32),
+                                      (R_i @ td + t_i).astype(np.float32))
+                self.map = state.vm   # _rebuild_map needs its capacity
+                if (self.cfg.loop_closure and (self.frames_processed - 1)
+                        % self.cfg.keyframe_every == 0):
+                    cloud = PointSet(diag.kf_xyz[i], diag.kf_rgb[i],
+                                     diag.kf_mask[i])
+                    if self._maybe_keyframe_fused(_Row(diag, i),
+                                                  cloud=cloud):
+                        Rd2, td2 = (np.asarray(a, np.float32)
+                                    for a in self._last_loop_delta)
+                        if delta is None:
+                            delta = (Rd2, td2)
+                        else:   # raw o d1 o d2 (right-composition)
+                            Rd1, td1 = delta
+                            delta = (Rd1 @ Rd2, Rd1 @ td2 + td1)
+                        state = self._with_host_pose(state)
+                self._log_rate(start, lambda: int(rows.map_size[i]))
+            if delta is not None:
+                # the next batch chains from the corrected last pose
+                state = self._with_host_pose(state)
+            buf.clear()
+
+        buf: list = []
+        try:
+            for i, (bgr, ts, ident) in enumerate(source):
+                if max_frames is not None and i >= max_frames:
+                    break
+                if buf and tuple(bgr.shape[:2]) != tuple(buf[0].shape[:2]):
+                    flush(buf)   # a change of shape starts a new batch
+                buf.append(bgr)
+                if len(buf) == B:
+                    flush(buf)
+        except KeyboardInterrupt:
+            self._log("Interrupted - finalizing map")
+        flush(buf)
+        self._finish_fused(state)
+        self._log_done(start)
+        return self.frames_processed
 
     def run(self, source, max_frames: Optional[int] = None) -> int:
         """Fuse every frame of ``source`` (an iterable of (bgr, timestamp,
-        identifier)), stepwise; returns the frames fused."""
-        self._log("Streaming stepwise: the port has no fused "
-                  "one-program-per-frame step yet")
+        identifier)); returns the frames fused. The fused step runs when
+        ``fused`` is set and the model is the port's
+        ``DepthAnythingModel``, batched unless the source is realtime
+        (``txr``'s dispatch); any other model takes the stepwise loop."""
+        if self.fused and isinstance(self.depth_model, DepthAnythingModel):
+            if (int(self.cfg.stream_batch) > 1
+                    and not getattr(source, "realtime", False)):
+                self.route = "fused_batched"
+                return self._run_fused_batched(source, max_frames)
+            self.route = "fused_per_frame"
+            return self._run_fused(source, max_frames)
+        self.route = "stepwise"
+        self._log("Streaming stepwise: one frame at a time")
         start = time.time()
         try:
             for i, (bgr, ts, ident) in enumerate(source):
                 if max_frames is not None and i >= max_frames:
                     break
-                self.process_frame(bgr, ts, ident)
-                if self.frames_processed and self.frames_processed % 10 == 0:
-                    fps = self.frames_processed / (time.time() - start)
-                    self._log(f"Fused {self.frames_processed} frames "
-                              f"({fps:.1f} fps), map: "
-                              f"{int(offset_map_size(self.map))} voxels")
+                if self.process_frame(bgr, ts, ident):
+                    self._log_rate(
+                        start, lambda: int(offset_map_size(self.map)))
         except KeyboardInterrupt:
             self._log("Interrupted - finalizing map")
-        elapsed = max(time.time() - start, 1e-9)
-        self._log(f"Stream done: {self.frames_processed} fused, "
-                  f"{self.frames_skipped} skipped, "
-                  f"{self.frames_processed / elapsed:.1f} fps")
+        self._log_done(start)
         return self.frames_processed
 
     def save(self, path: str) -> int:
