@@ -128,11 +128,32 @@ then warm; its depth graph (attention and tail kernels inside) against
 its eager call. A graph's kernel launches are its launches per replay
 times its replays, plus its warm-up calls'.
 
+``train_path`` fine-tunes v2 / ViT-L (metric head) at full width through
+``txr_torch.train``: 4 frames of main_path's preprocess (518 x 924, 2443
+tokens) against a seeded smooth metric target, f32 master weights under
+bf16 autocast, ``make_optimizer()`` at its defaults. One step of the kernel
+route (attention and tail kernels forward, their plain versions
+differentiated backward) is held against the plain route
+(``TXR_FUSED_HEAD=0``, the plain attention) at one frame (the plain
+attention's saved scores take 18 GB a frame), and one with
+``TXR_FUSED_CONVS=1`` (9 conv launches) against cuDNN's at four: the loss,
+the global gradient norm and each parameter's gradient. After optimizer
+steps the tail's and the conv's operands derived from the weights are held
+against the plain versions at the new weights. Then 2 warm-up and 8 timed
+steps, split into forward, backward and clip + optimizer between CUDA
+events, with 24 attention and 1 tail launch a step and losses whose
+minimum falls below the first; one profiled step (the device time under
+the plain attention backward); one layer's plain attention backward
+alone; and, over a one-rank NCCL group at mesh (1, 1) on v2 / ViT-S, the
+sharded fusion step (one fused-reduce launch an insert) and the sharded
+train step against their unsharded counterparts.
+
 Every line of standard output is one JSON object. The phases are ``device``,
 ``build``, ``kernel_check`` (one line per comparison), ``reference``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
 ``depth_cli_path``, ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
-``enhanced_cli_path``, ``stream_path``, ``stream_fused_path``, ``script``
+``enhanced_cli_path``, ``stream_path``, ``stream_fused_path``,
+``train_path``, ``script``
 (the whole run's wall),
 then the ``kernels`` summary and, last, the verdict
 ``{"ok": true, "device": {...}}``. Any failing phase raises and the exit
@@ -155,6 +176,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
@@ -169,10 +191,13 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
 import txr_torch._native as native
+import txr_torch.train as train
+from txr_torch.core.precision import kernel_autocast
 from txr_torch.core.intrinsics import CameraIntrinsics
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
@@ -235,6 +260,13 @@ from txr_torch.fusion.pointcloud import backproject_views
 from txr_torch.ops.outlier import remove_statistical_outliers_grid
 from txr_torch.ops.segment import lexsort3
 from txr_torch.ops.voxel import _voxel_keys, _weighted_cols, voxel_downsample
+from txr_torch.parallel.mesh import (COLUMN_PARALLEL, ROW_PARALLEL,
+                                     make_mesh, shard_batch, shard_params,
+                                     unshard_grads, unshard_state_dict)
+from txr_torch.parallel.pipeline import (create_sharded_maps,
+                                         make_sharded_fusion_step,
+                                         merge_sharded_maps,
+                                         stack_sharded_maps)
 
 # Published dense peaks of one H100 SXM, used for the bounds.
 PEAK_BF16_FLOPS = 989e12
@@ -1460,23 +1492,30 @@ def main_path(frames: int, profile: bool) -> tuple:
     return out, depth
 
 
-def path_with_env(phase: str, env: dict, frames: int, profile: bool,
-                  expect: dict, main_depth: torch.Tensor,
-                  **model_kwargs) -> dict:
-    """``drive_path`` with ``env`` set in the environment (restored
-    afterwards), and its depth against ``main_path``'s (same weights and
-    frames) as a share of main_path's depth span."""
+@contextlib.contextmanager
+def scoped_env(env: dict):
+    """``env`` set in the environment for the block, then restored."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        out, depth = drive_path(phase, frames, profile, expect,
-                                **model_kwargs)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def path_with_env(phase: str, env: dict, frames: int, profile: bool,
+                  expect: dict, main_depth: torch.Tensor,
+                  **model_kwargs) -> dict:
+    """``drive_path`` with ``env`` set in the environment (restored
+    afterwards), and its depth against ``main_path``'s (same weights and
+    frames) as a share of main_path's depth span."""
+    with scoped_env(env):
+        out, depth = drive_path(phase, frames, profile, expect,
+                                **model_kwargs)
     span = (main_depth.max() - main_depth.min()).item()
     diff = (depth - main_depth).abs() / span
     out["depth_vs_main_path"] = {
@@ -3877,17 +3916,10 @@ def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
     in_h, in_w = compute_da_resize(H, W, 518)
     bf16, _, _ = build_model("v2", "vitl", dtype=torch.bfloat16,
                              generator=torch.Generator().manual_seed(0))
-    saved = os.environ.get("TXR_FUSED_HEAD")
-    os.environ["TXR_FUSED_HEAD"] = "0"
-    try:
+    with scoped_env({"TXR_FUSED_HEAD": "0"}):
         f32, _, dpt_cfg = build_model("v2", "vitl", use_flash=False,
                                       dtype=torch.float32,
                                       generator=torch.Generator().manual_seed(0))
-    finally:
-        if saved is None:
-            os.environ.pop("TXR_FUSED_HEAD", None)
-        else:
-            os.environ["TXR_FUSED_HEAD"] = saved
     f32.load_state_dict({k: v.float() for k, v in bf16.state_dict().items()})
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 256, (frames, H, W, 3),
@@ -3923,6 +3955,727 @@ def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
     emit(out)
     del bf16, f32
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH = 4                 # frames of a train step
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+# make_optimizer's defaults, txr's (lr 1e-5, 100 warm-up steps). Adam's
+# first step with a rate moves every weight by about that rate, all in
+# step; with one warm-up step it came at 1e-4 (or 1e-5) and threw the
+# seeded ViT-L's loss from 0.451 to 1.17 and its head to 20 m everywhere,
+# where the sigmoid's gradient vanishes. The same jump shows on the plain
+# route and in f32 without autocast (tools/train_path_dev.py --witness;
+# PERF.md, train_path)
+TRAIN_OPT = dict(lr=1e-5, warmup_steps=100, total_steps=10_000)
+TRAIN_COMPARE_BATCH = 1
+TRAIN_COMPARE_WHY = (
+    "the plain attention's forward keeps its f32 scores and probabilities "
+    "of every layer for the backward, 0.76 GB a frame and layer at 2443 "
+    "tokens: 18 GB for 24 layers at one frame, 73 GB at four")
+# the train loss and its parts, each a function of train.depth_loss_sums'
+# seven sums, whose gradients the two routes compare apart. With m1 the
+# mean of d = log(pred) - log(target) over valid pixels: SILog is
+# log_variance + 0.5 m1^2, and only its m1 part sees a common scale of the
+# prediction
+LOSS_TERMS = {
+    "loss": lambda s: train.loss_from_sums(s),
+    "silog": lambda s: train.silog_from_sums(s[:3]),
+    "gradient": lambda s: train.gradient_from_sums(s[3:]),
+    "log_variance": lambda s: train.silog_from_sums(s[:3], lam=1.0),
+    "mean_log_ratio": lambda s: s[0] / torch.clamp(s[2], min=1.0),
+}
+_TRAIN_TOL_WHY = (
+    "both routes run bf16 autocast and differentiate the same plain "
+    "backward; they differ where the forward rounds: the attention kernel "
+    "rounds the probabilities before it normalises, the plain version "
+    "after (ATTN_TOL: 4 bf16 ulps), and the tail kernel keeps its upsampled "
+    "image and conv2 sums where the plain version rounds them to bf16 "
+    "(TAIL_TOL). A parameter's gradient is held to a share of its norm, or "
+    "of grad_floor times the global norm where its own is smaller")
+TRAIN_TOL = {
+    # on an H100 at 700 W, kernels against plain versions at one frame,
+    # readings: loss 1.7e-3, gradient norm 3.03e-2 to 3.05e-2 in
+    # four runs, worst parameter 4.7e-2. The spread is SILog's m1 part: the
+    # kernel route's mean log depth sits 3.3e-3 above the plain route's
+    # (m1 0.0922 against 0.0889), and |dm1| |grad m1| = 0.64 of the SILog
+    # gradients' distance of 0.68. The scale-blind parts below agree 30 to
+    # 150 times closer in norm
+    "loss": dict(loss_rtol=2.0 ** -7, norm_rtol=2.0 ** -3, grad_rel=2.0 ** -2),
+    "silog": dict(loss_rtol=2.0 ** -7, norm_rtol=2.0 ** -3, grad_rel=2.0 ** -2),
+    # m1 itself (3.7e-2 apart, being near 0); its gradient 1.2e-3, 5.3e-3
+    "mean_log_ratio": dict(loss_rtol=2.0 ** -3, norm_rtol=2.0 ** -7,
+                           grad_rel=2.0 ** -5),
+    # the backward at the plain route's d loss / d prediction: the product
+    # 1.4e-2 apart, the norm 1.9e-2, worst 4.4e-2 (each route's Jacobian
+    # at its own forward, the same m1 shift)
+    "cotangent": dict(loss_rtol=2.0 ** -4, norm_rtol=2.0 ** -4,
+                      grad_rel=2.0 ** -2),
+    # the checks that hold the backward tight, scale-blind: readings 2.3e-3
+    # / 1.9e-4 / 3.1e-2 (log variance) and 2.8e-3 / 1.0e-3 / 1.3e-2
+    # (gradient matching); TRAIN_CONTROL must fail the first
+    "log_variance": dict(loss_rtol=2.0 ** -7, norm_rtol=2.0 ** -7,
+                         grad_rel=2.0 ** -4),
+    "gradient": dict(loss_rtol=2.0 ** -6, norm_rtol=2.0 ** -7,
+                     grad_rel=2.0 ** -4),
+    # TXR_FUSED_CONVS=1 against cuDNN at 4 frames: 4.6e-7 / 3.8e-5 / 2.6e-3
+    "conv": dict(loss_rtol=2.0 ** -7, norm_rtol=2.0 ** -4, grad_rel=2.0 ** -3),
+}
+for _t in TRAIN_TOL.values():
+    _t["grad_floor"] = 2.0 ** -10
+# a fault the log-variance check must reject: one block's attention
+# backward handed a gradient 1 + 2^-2 times too large (a pre-hook on its
+# proj), which moves that block's qkv gradients by 25 %
+TRAIN_CONTROL = dict(block=12, scale=1.25, term="log_variance")
+# the kernel route's forward against the plain route's at the path's batch
+TRAIN_FWD_TOL = dict(
+    loss_rtol=2.0 ** -7, median_share=0.01, max_share=0.10,
+    why="the forward's rounding as above, over 4 frames; the depth as "
+        "shares of the plain depth's span, as SEQ_LIMIT")
+# the NCCL check's schedule: lr 0 at step 0, so both steps' first
+# gradients are taken at the same weights, then one update at 1e-6, whose
+# effect the third step's loss shows
+TRAIN_NCCL_OPT = dict(lr=1e-6, warmup_steps=1, total_steps=100)
+TRAIN_NCCL_TOL = dict(
+    loss_rtol=1e-6, norm_rtol=1e-3, grad_rel=2.0 ** -6,
+    grad_floor=2.0 ** -10, after_rtol=2.5e-3, moved_over_after=10.0,
+    param_atol_lr=2.01,
+    why="mesh (1, 1): the sharded step runs the unsharded step's kernels on "
+        "DTensors of one rank, and the losses before the update are "
+        "bit-equal; the backward is not deterministic run to run (atomic "
+        "adds, as in the position embeddings' bicubic resize: the same "
+        "unsharded step at the same weights gave norms 1.0e-5 apart, the "
+        "sharded and unsharded 2.0e-7 and 4.3e-5 in two runs, a parameter's "
+        "gradient 3.4e-3 of its norm), and Adam's first step with a rate moves each weight by "
+        "+-lr whatever the gradient's size, so a flipped sign of a gradient "
+        "near zero moves a parameter 2 lr (lr: the rates applied, summed; "
+        "|m/sqrt(v)| <= 1.0036 at Adam's third step with its bias "
+        "corrections) beyond the f32 rounding of each parameter (2 eps |p|), "
+        "and the loss after the update 5.9e-4; the update itself must move "
+        "the loss by moved_over_after times after_rtol (6.5e-2 measured), "
+        "so a step that applies no update, or the opposite one, fails")
+
+
+def train_batch(frames: int) -> tuple:
+    """main_path's preprocess of ``frames`` seeded 1080p frames (518 x 924,
+    2443 tokens), a seeded smooth positive metric depth (0.5 to 10 m) and
+    a seeded mask with about 10 % of the pixels invalid."""
+    in_h, in_w = compute_da_resize(H, W, 518)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (frames, H, W, 3),
+                                      dtype=np.uint8)).cuda()
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    with torch.no_grad():
+        xm = resize_bicubic(x.to(torch.float32) / 255.0, in_h, in_w,
+                            align_corners=False)
+        images = (xm - mean) / std
+        coarse = torch.from_numpy(rng.uniform(
+            0.5, 10.0, (frames, 1, 8, 14)).astype(np.float32)).cuda()
+        target = F.interpolate(coarse, size=(in_h, in_w), mode="bilinear",
+                               align_corners=True)[:, 0]
+        mask = torch.from_numpy(rng.uniform(size=(frames, in_h, in_w))
+                                >= 0.1).cuda()
+    return images, target, mask, xm
+
+
+def train_model(env: dict = None, **kw) -> tuple:
+    """v2 / ViT-L with the metric head (sigmoid x 20 m: a prediction that
+    is never clamped), f32 master weights drawn on the card from seed 0,
+    built as a user builds it: ``TXR_FUSED_HEAD`` / ``TXR_FUSED_CONVS``
+    from ``env``."""
+    with scoped_env(env or {}):
+        return build_model("v2", "vitl", metric=True, max_depth=20.0,
+                           dtype=torch.float32,
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(0), **kw)
+
+
+def grads_of(model, images, target, mask, term: str = "loss") -> tuple:
+    """One forward and backward of a LOSS_TERMS term; the term's value,
+    the gradients (by name) and the launches of the forward and
+    backward."""
+    model.zero_grad(set_to_none=True)
+    kernels.reset_launches()
+    loss = LOSS_TERMS[term](train.loss_sums(model, images, target, mask))
+    loss.backward()
+    torch.cuda.synchronize()
+    used = {k: v for k, v in kernels.launches.items() if v}
+    return (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+            used)
+
+
+def cotangent_of(model, images, target, mask) -> torch.Tensor:
+    """d loss / d prediction at ``model``'s prediction (no graph kept)."""
+    with torch.no_grad(), kernel_autocast("cuda"):
+        pred = model(images).float()
+    pred.requires_grad_(True)
+    train.loss_from_sums(train.depth_loss_sums(pred, target, mask)
+                         ).backward()
+    return pred.grad
+
+
+def vjp_of(model, images, cotangent: torch.Tensor) -> tuple:
+    """The parameters' gradients of <prediction, cotangent>: the network's
+    backward alone, at a cotangent both routes share; the product's value,
+    the gradients and the launches, as ``grads_of``."""
+    model.zero_grad(set_to_none=True)
+    kernels.reset_launches()
+    with kernel_autocast("cuda"):
+        pred = model(images)
+    dot = (pred.float() * cotangent).sum()
+    dot.backward()
+    torch.cuda.synchronize()
+    used = {k: v for k, v in kernels.launches.items() if v}
+    return (dot.item(), {n: p.grad for n, p in model.named_parameters()},
+            used)
+
+
+def control_fault(model):
+    """TRAIN_CONTROL's fault on ``model``; returns the hook's handle."""
+    proj = getattr(model.encoder, f"block_{TRAIN_CONTROL['block']}").attn.proj
+
+    def scale_grad(_, args):
+        if args[0].requires_grad:
+            args[0].register_hook(lambda g: g * TRAIN_CONTROL["scale"])
+
+    return proj.register_forward_pre_hook(scale_grad)
+
+
+def grad_errors(got: dict, want: dict, floor_share: float) -> dict:
+    """Gradients by name against others: the global norms, and the worst
+    parameter's distance as a share of its norm, or of ``floor_share`` of
+    the global norm where its own is smaller."""
+    names = list(want)
+    norm_g = train.global_norm([got[n] for n in names]).item()
+    norm_w = train.global_norm([want[n] for n in names]).item()
+    floor = floor_share * norm_w
+    worst, worst_name, dots, diff2 = 0.0, None, 0.0, 0.0
+    for n in names:
+        g, w = got[n].float(), want[n].float()
+        d = (g - w).norm().item()
+        rel = d / max(w.norm().item(), floor)
+        dots += (g * w).sum().item()
+        diff2 += d * d
+        if rel > worst:
+            worst, worst_name = rel, n
+    return {"grad_norm": norm_g, "grad_norm_ref": norm_w,
+            "grad_norm_rel_err": abs(norm_g - norm_w) / norm_w,
+            "grad_diff_norm": diff2 ** 0.5,
+            "worst_param_grad_rel_err": worst, "worst_param": worst_name,
+            "grad_cosine": dots / (norm_g * norm_w), "params": len(names)}
+
+
+def compare_grads(case: str, got: tuple, want: tuple, tol: dict) -> dict:
+    """The loss, the global gradient norm and each parameter's gradient of
+    ``got`` against ``want`` (both ``grads_of``), to ``tol``."""
+    loss_g, g, _ = got
+    loss_w, w, _ = want
+    out = {"case": case, "loss": loss_g, "loss_ref": loss_w,
+           "loss_rel_err": abs(loss_g - loss_w) / abs(loss_w),
+           **grad_errors(g, w, tol["grad_floor"]), "tolerance": tol}
+    out["ok"] = (out["loss_rel_err"] <= tol["loss_rtol"]
+                 and out["grad_norm_rel_err"] <= tol["norm_rtol"]
+                 and out["worst_param_grad_rel_err"] <= tol["grad_rel"])
+    if not out["ok"]:
+        emit({"phase": "train_check", **out, "why": _TRAIN_TOL_WHY})
+        raise AssertionError(f"train_path/{case}: {out}")
+    return out
+
+
+def forward_routes(model, plain_model, layers: int, images, target,
+                   mask) -> dict:
+    """The kernel route's loss and depth against the plain route's at the
+    path's batch, forward only (the plain attention keeps nothing for a
+    backward under no_grad), to TRAIN_FWD_TOL."""
+    runs = {}
+    with torch.no_grad():
+        for name, m in (("kernels", model), ("plain", plain_model)):
+            kernels.reset_launches()
+            with kernel_autocast("cuda"):
+                pred = m(images).float()
+            loss = train.loss_from_sums(train.depth_loss_sums(pred, target,
+                                                              mask))
+            torch.cuda.synchronize()
+            runs[name] = (loss.item(), pred, {k: v for k, v in
+                                              kernels.launches.items() if v})
+    (loss_k, pred_k, used_k), (loss_p, pred_p, used_p) = (runs["kernels"],
+                                                          runs["plain"])
+    if used_k != {"attention": layers, "dpt_tail": 1} or used_p:
+        raise AssertionError(f"train_path/forward: kernel route launched "
+                             f"{used_k}, plain route {used_p}")
+    if not (torch.isfinite(pred_k).all() and torch.isfinite(pred_p).all()):
+        raise AssertionError("train_path/forward: depth is not finite")
+    ref = pred_p.cpu().numpy()
+    share = depth_share(pred_k.cpu().numpy() - ref,
+                        float(ref.max() - ref.min()))
+    out = {"case": "kernels vs plain versions, forward",
+           "frames": images.shape[0], "loss": loss_k, "loss_ref": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "depth": share,
+           "tolerance": {k: v for k, v in TRAIN_FWD_TOL.items()
+                         if k != "why"}}
+    out["ok"] = (out["loss_rel_err"] <= TRAIN_FWD_TOL["loss_rtol"]
+                 and share["median_share_of_span"]
+                 <= TRAIN_FWD_TOL["median_share"]
+                 and share["max_share_of_span"] <= TRAIN_FWD_TOL["max_share"])
+    if not out["ok"]:
+        emit({"phase": "train_check", **out, "why": TRAIN_FWD_TOL["why"]})
+        raise AssertionError(f"train_path/forward: {out}")
+    return out
+
+
+def check_tail_cache(model, size: tuple, gen: torch.Generator) -> dict:
+    """After optimizer steps the tail's operands derived from the weights
+    (packed conv2, biases) must be those of the new weights: the kernel
+    with the head's cached operands against its plain version at the
+    current parameters, at the path's shape, to the kernel_check
+    tolerance. ``size``: the model's input (the tail's output)."""
+    head = model.head
+    key = head._tail_w2._key
+    ph, pw = size[0] // 14, size[1] // 14
+    x = torch.randn((1, 8 * ph, 8 * pw, head.head_conv2.in_channels),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    w2 = head.head_conv2.weight.detach().permute(2, 3, 1, 0)
+    args = (w2, head.head_conv2.bias.detach(),
+            head.head_conv3.weight.detach().reshape(-1),
+            head.head_conv3.bias.detach())
+    with torch.no_grad():
+        got = fused_head_tail(x, *args, *size, head.tail_operands())
+        # the kernel's operands: conv2's weight in bf16, the rest in f32
+        want = head_tail_reference(
+            x.float(), w2.to(torch.bfloat16).float(),
+            *[a.float() for a in args[1:]], *size)
+    err = compare("dpt_tail", "after optimizer steps, cached operands",
+                  got, want, TAIL_TOL["atol"], TAIL_TOL["rtol"],
+                  TAIL_TOL["why"], TAIL_TOL["rms_rtol"])
+    return {"case": "tail operands after optimizer steps",
+            "max_abs_err": err, "derived_anew": head._tail_w2._key != key,
+            "ok": True}
+
+
+def check_conv_cache(model, key: tuple, size: tuple,
+                     gen: torch.Generator) -> dict:
+    """The same for the 3x3 conv's packed weight (head_conv1): ``key`` is
+    the cache's key before the optimizer steps."""
+    conv = model.head.head_conv1
+    x = torch.randn((1, 8 * (size[0] // 14), 8 * (size[1] // 14),
+                     conv.in_channels), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    with torch.no_grad():
+        got = conv.fused(x, False)
+        # the kernel's operands: the weight in bf16, the bias in f32
+        want = conv3x3_reference(
+            x.float(), conv.weight.detach().to(torch.bfloat16).float()
+            .permute(2, 3, 1, 0), conv.bias.detach().float())
+    err = compare("conv3x3", "after optimizer steps, cached weight", got,
+                  want, CONV_TOL["atol"], CONV_TOL["rtol"], CONV_TOL["why"],
+                  CONV_TOL["rms_rtol"])
+    if conv._wp._key == key:
+        raise AssertionError("train_path: the packed conv weight was not "
+                             "derived anew after the optimizer steps")
+    return {"case": "conv weight after optimizer steps", "max_abs_err": err,
+            "derived_anew": True, "ok": True}
+
+
+def attention_backward_ms(batch: int, s: int, layers: int,
+                          gen: torch.Generator) -> dict:
+    """One layer's attention backward as the train step runs it (the
+    plain version recomputed and differentiated at the saved bf16 qkv),
+    at the path's shape (``s`` tokens), between CUDA events, and the
+    memory it takes."""
+    qkv = (torch.randn((batch, s, 3 * HEADS * HEAD_DIM), generator=gen,
+                       device="cuda") * 0.5).to(torch.bfloat16)
+    grad = torch.randn((batch, s, HEADS * HEAD_DIM), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+    def run():
+        x = qkv.detach().requires_grad_(True)
+        y = attention_reference(x, HEADS, HEAD_DIM, score_mode="f32max")
+        return torch.autograd.grad(y, x, grad)[0]
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, runs=5, warmup=1)
+    flops = 6 * 2 * batch * HEADS * s * s * HEAD_DIM     # 2 fwd + 4 bwd
+    return {"ms_per_layer": ms, "ms_per_step": ms * layers,
+            "transient_bytes": torch.cuda.max_memory_allocated() - base,
+            "f32_gemm_flops_per_layer": flops,
+            "f32_bound_ms_per_layer": flops / PEAK_F32_FLOPS * 1e3}
+
+
+def train_profile(run_step) -> dict:
+    """One train step under ``torch.profiler``: device time, the largest
+    kernels, and the device time under the autograd nodes of the kernels'
+    plain backwards."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    rows, nodes = [], {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = e.cuda_time_total
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append({"name": e.key[:90], "calls": e.count,
+                             "ms": us / 1e3})
+            continue
+        for node in ("_FusedAttentionBackward", "_FusedHeadTailBackward"):
+            if e.key == f"autograd::engine::evaluate_function: {node}":
+                nodes[node] = {"calls": e.count, "device_ms": total / 1e3}
+    rows.sort(key=lambda r: -r["ms"])
+    device_ms = sum(r["ms"] for r in rows)
+    for v in nodes.values():
+        v["share_of_step_device_time"] = v["device_ms"] / max(device_ms,
+                                                               1e-9)
+    return {"device_ms": device_ms, "launches": sum(r["calls"] for r in rows),
+            "kernels_by_device_ms": rows[:12],
+            "rest_ms": sum(r["ms"] for r in rows[12:]),
+            "plain_backward_nodes": nodes}
+
+
+def train_nccl(images: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               xm: torch.Tensor) -> dict:
+    """The sharded fusion step and the sharded train step over a one-rank
+    NCCL group at mesh (1, 1), on v2 / ViT-S (metric head, f32 master
+    weights), each against its unsharded counterpart on the card (the
+    fusion first, while both models hold the same weights). The train
+    steps: three at TRAIN_NCCL_OPT; the first step's gradients parameter
+    by parameter and its norm, the losses, the loss after the update, and
+    the parameters after the steps."""
+    store = tempfile.mkdtemp(prefix="txr_nccl_")
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ref, vits_cfg, _ = build_model("v2", "vits", metric=True,
+                                       max_depth=20.0, dtype=torch.float32,
+                                       generator=gen)
+        sharded, _, _ = build_model("v2", "vits", metric=True,
+                                    max_depth=20.0, dtype=torch.float32,
+                                    generator=gen)
+        sharded.load_state_dict(ref.state_dict())
+        shard_params(sharded, mesh)
+        placed = sum(hasattr(p, "placements")
+                     for p in sharded.parameters())
+        dense = sum(n.split(".")[-2] in COLUMN_PARALLEL + ROW_PARALLEL
+                    for n, _ in ref.named_parameters())
+
+        in_h, in_w = xm.shape[1:3]
+        intr = (0.8 * in_w, 0.8 * in_w, in_w / 2.0, in_h / 2.0)
+        n = xm.shape[0]
+        poses = (torch.eye(3, device="cuda").expand(n, 3, 3),
+                 torch.zeros((n, 3), device="cuda"),
+                 torch.ones(n, device="cuda"))
+        fuse = make_sharded_fusion_step(sharded, intr, 1e-4, 1e6)
+        kernels.reset_launches()
+        vm = create_sharded_maps(mesh, 1 << 21, 0.01)
+        for _ in range(2):
+            vm = fuse(shard_batch(xm, mesh), *poses, vm)
+        torch.cuda.synchronize()
+        fused_launches = {k: v for k, v in kernels.launches.items() if v}
+        merged = merge_sharded_maps(stack_sharded_maps(vm, mesh))
+        ref_fuse = make_sharded_fusion_step(ref, intr, 1e-4, 1e6)
+        want = create_offset_map(1 << 21, 0.01)
+        for _ in range(2):
+            want = ref_fuse(xm, *poses, want)
+        voxels = int(offset_map_size(merged))
+        bit_equal = all(torch.equal(a, b)
+                        for a, b in zip(merged[:NCOLS], want[:NCOLS]))
+        if (fused_launches.get("offset_reduce") != 2 or voxels < 1
+                or voxels != int(offset_map_size(want)) or placed != dense):
+            raise AssertionError(f"train_path/nccl fusion: launches "
+                                 f"{fused_launches}, {voxels} voxels, "
+                                 f"{placed} of {dense} dense parameters "
+                                 f"sharded")
+        mp, wp = offset_map_points(merged), offset_map_points(want)
+        pos_err = (mp.xyz[mp.mask] - wp.xyz[wp.mask]).abs().max().item()
+        if pos_err > 0.01 / 1024 * 4:
+            raise AssertionError(f"train_path/nccl fusion: voxel means "
+                                 f"{pos_err} m apart")
+
+        opt = train.make_optimizer(**TRAIN_NCCL_OPT)
+        runs, first_grads = {}, {}
+        for name, model, make in (
+                ("unsharded", ref, lambda m: train.make_train_step(m, opt)),
+                ("sharded", sharded,
+                 lambda m: train.make_sharded_train_step(m, opt, mesh))):
+            adam, sched = opt.init(model.parameters())
+            state = train.TrainState(model, adam, sched)
+            step = make(model)
+            kernels.reset_launches()
+            losses, norms = [], []
+            for i in range(3):
+                state, loss = step(state, shard_batch(images, mesh),
+                                   shard_batch(target, mesh),
+                                   shard_batch(mask, mesh))
+                losses.append(loss.item())
+                norms.append(state.grad_norm.item())
+                if i == 0:      # at lr 0: both at the same weights
+                    first_grads[name] = {n: g.clone() for n, g in
+                                         unshard_grads(model).items()}
+            torch.cuda.synchronize()
+            runs[name] = {"losses": losses, "grad_norms": norms,
+                          "launches": {k: v for k, v in
+                                       kernels.launches.items() if v}}
+        tol = TRAIN_NCCL_TOL
+        # the first step's gradients, parameter by parameter, clipped alike
+        # (the clip scales both by their own norms, compared below)
+        grads = grad_errors(first_grads["sharded"], first_grads["unsharded"],
+                            tol["grad_floor"])
+        del first_grads
+        sh, un = runs["sharded"], runs["unsharded"]
+        norm_err = abs(sh["grad_norms"][0] - un["grad_norms"][0]) / abs(
+            un["grad_norms"][0])
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            sh["losses"][:2], un["losses"][:2]))
+        after_err = abs(sh["losses"][2] - un["losses"][2]) / abs(
+            un["losses"][2])
+        moved = abs(un["losses"][2] - un["losses"][0]) / abs(un["losses"][0])
+        full = unshard_state_dict(sharded)
+        lr = sum(opt.learning_rate(i) for i in range(3))   # rates applied
+        eps = torch.finfo(torch.float32).eps
+        param_err = max((full[n] - p.detach()).abs().max().item()
+                        for n, p in ref.named_parameters())
+        # beyond the f32 rounding of each parameter (LayerNorm scales and
+        # LayerScale sit at 1, whose ulp is comparable to these rates)
+        param_excess = max(((full[n] - p.detach()).abs()
+                            - 2 * eps * p.detach().abs()).max().item()
+                           for n, p in ref.named_parameters())
+        out = {"backend": torch.distributed.get_backend(), "mesh": [1, 1],
+               "model": "v2/vits metric", "frames": n,
+               "dtensor_params": placed,
+               "fusion_launches": fused_launches, "fusion_inserts": 2,
+               "voxels": voxels, "fusion_bit_equal_unsharded": bit_equal,
+               "fusion_mean_max_err_m": pos_err, "train": runs,
+               "optimizer": TRAIN_NCCL_OPT,
+               "first_step_grads": grads, "grad_norm_rel_err": norm_err,
+               "loss_rel_err": loss_err,
+               "loss_after_update_rel_err": after_err,
+               "loss_moved_by_update": moved,
+               "param_max_err": param_err,
+               "param_max_err_in_lr": param_err / lr,
+               "param_max_err_beyond_f32_rounding_in_lr": param_excess / lr,
+               "tolerance": {k: v for k, v in tol.items() if k != "why"}}
+        if (loss_err > tol["loss_rtol"] or norm_err > tol["norm_rtol"]
+                or grads["grad_norm_rel_err"] > tol["norm_rtol"]
+                or grads["worst_param_grad_rel_err"] > tol["grad_rel"]
+                or after_err > tol["after_rtol"]
+                or moved < tol["moved_over_after"] * tol["after_rtol"]
+                or param_excess > tol["param_atol_lr"] * lr
+                or sh["launches"].get("attention")
+                != 3 * vits_cfg.num_layers):
+            emit({"phase": "train_check", "case": "nccl train step", **out,
+                  "why": tol["why"]})
+            raise AssertionError(f"train_path/nccl train step: {out}")
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def train_path(smi: str) -> dict:
+    """Fine-tuning v2 / ViT-L at full width on the card through the
+    attention and tail kernels (forward) and their plain backwards:
+    TRAIN_BATCH frames of main_path's preprocess, seeded metric targets,
+    f32 master weights under bf16 autocast, ``make_optimizer()`` at its
+    defaults (TRAIN_OPT). The kernel route's forward against the plain
+    route's (TXR_FUSED_HEAD=0, the plain attention) at TRAIN_BATCH frames,
+    and their gradients at TRAIN_COMPARE_BATCH frames, term by term
+    (LOSS_TERMS, and the backward at a shared cotangent), with a control
+    fault the tight checks must reject; the 3x3 conv kernel's step
+    (TXR_FUSED_CONVS=1) against cuDNN's; the caches derived from the
+    weights after optimizer steps; TRAIN_WARMUP + TRAIN_TIMED steps split
+    into forward, backward and clip + optimizer between CUDA events; one
+    profiled step; the plain attention backward alone; the NCCL steps."""
+    t_phase = time.perf_counter()
+    # the earlier phases' garbage, collected now and not inside a timed step
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images, target, mask, xm = train_batch(TRAIN_BATCH)
+    checks = []
+
+    model, vit_cfg, dpt_cfg = train_model()
+    layers = vit_cfg.num_layers
+    size = tuple(images.shape[1:3])
+    tokens = (size[0] // 14) * (size[1] // 14) + 1
+    plain_model, _, plain_dpt = train_model({"TXR_FUSED_HEAD": "0"},
+                                            use_flash=False)
+    plain_model.load_state_dict(model.state_dict())
+    if plain_dpt.fused_head is not False:
+        raise AssertionError("train_path: the plain route fuses the head")
+    # the path's own shapes, forward only
+    checks.append(forward_routes(model, plain_model, layers, images, target,
+                                 mask))
+    # the gradients at TRAIN_COMPARE_BATCH: the loss, each of its parts,
+    # and the backward alone at a cotangent both routes share
+    nb = TRAIN_COMPARE_BATCH
+    one = (images[:nb], target[:nb], mask[:nb])
+    cot = cotangent_of(plain_model, *one)
+    for term in [*LOSS_TERMS, "cotangent"]:
+        run = ((lambda m: vjp_of(m, one[0], cot)) if term == "cotangent"
+               else (lambda m: grads_of(m, *one, term=term)))
+        kern = run(model)
+        kern = (kern[0], {n: g.clone() for n, g in kern[1].items()}, kern[2])
+        plain = run(plain_model)
+        if (kern[2] != {"attention": layers, "dpt_tail": 1} or plain[2]):
+            raise AssertionError(f"train_path: kernel route launched "
+                                 f"{kern[2]}, plain route {plain[2]}")
+        checks.append(compare_grads(f"kernels vs plain versions, {term}",
+                                    kern, plain, TRAIN_TOL[term]))
+        checks[-1]["frames"] = nb
+        if term == "loss":
+            checks[-1]["cut_why"] = TRAIN_COMPARE_WHY
+        if term == TRAIN_CONTROL["term"]:
+            control_ref = plain[1]
+        del plain, kern
+    # the control: the same comparison with a fault in the kernel route's
+    # backward, which the check must reject
+    handle = control_fault(model)
+    try:
+        faulty = grads_of(model, *one, term=TRAIN_CONTROL["term"])
+    finally:
+        handle.remove()
+    tol = TRAIN_TOL[TRAIN_CONTROL["term"]]
+    control = {"case": "control: a fault the check must reject",
+               **TRAIN_CONTROL,
+               **grad_errors(faulty[1], control_ref, tol["grad_floor"])}
+    control["rejected"] = (control["worst_param_grad_rel_err"]
+                           > tol["grad_rel"]
+                           or control["grad_norm_rel_err"] > tol["norm_rtol"])
+    if not control["rejected"]:
+        raise AssertionError(f"train_path: the check passed a faulty "
+                             f"backward: {control}")
+    checks.append(control)
+    del cot, control_ref, faulty, plain_model
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the 3x3 conv kernel's step against cuDNN's, at the full batch
+    cudnn = grads_of(model, images, target, mask)
+    cudnn = (cudnn[0], {n: g.clone() for n, g in cudnn[1].items()},
+             cudnn[2])
+    model.zero_grad(set_to_none=True)
+    conv_model, _, conv_dpt = train_model({"TXR_FUSED_CONVS": "1"})
+    conv_model.load_state_dict(model.state_dict())
+    conv = grads_of(conv_model, images, target, mask)
+    if conv[2].get("conv3x3") != 9 or not conv_dpt.fused_convs:
+        raise AssertionError(f"train_path: TXR_FUSED_CONVS=1 launched "
+                             f"{conv[2]}")
+    checks.append(compare_grads("conv3x3 kernel vs cuDNN", conv, cudnn,
+                                TRAIN_TOL["conv"]))
+    checks[-1]["frames"] = TRAIN_BATCH
+    checks[-1]["launches"] = conv[2]
+    del conv, cudnn
+    # two steps (the first at lr 0) so that the conv's weights change
+    opt = train.make_optimizer(**TRAIN_OPT)
+    adam, sched = opt.init(conv_model.parameters())
+    cstate = train.TrainState(conv_model, adam, sched)
+    cstep = train.make_train_step(conv_model, opt)
+    key = conv_model.head.head_conv1._wp._key
+    for _ in range(2):
+        cstate, _ = cstep(cstate, images, target, mask)
+    checks.append(check_conv_cache(conv_model, key, size, gen))
+    del conv_model, cstate, cstep
+    torch.cuda.empty_cache()
+
+    # the timed run on the kernel route
+    adam, sched = opt.init(model.parameters())
+    state = train.TrainState(model, adam, sched)
+    step = train.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, split = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        if i < TRAIN_WARMUP:
+            state, loss = step(state, images, target, mask)
+            losses.append(loss)
+            if i == TRAIN_WARMUP - 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            continue
+        # the shipped step's three parts, which its call runs and nothing
+        # else, with events between them
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = step.forward(state, images, target, mask)
+        ev[1].record()
+        step.backward(loss)
+        ev[2].record()
+        step.update(state)
+        ev[3].record()
+        losses.append(loss.detach())
+        split.append(ev)
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l.item() for l in losses]
+    parts = {"forward": [e[0].elapsed_time(e[1]) for e in split],
+             "backward": [e[1].elapsed_time(e[2]) for e in split],
+             "clip_and_optimizer": [e[2].elapsed_time(e[3]) for e in split]}
+    total = TRAIN_WARMUP + TRAIN_TIMED
+    per_step = {k: v / total for k, v in launches.items() if v}
+    if (launches["attention"] != layers * total
+            or launches["dpt_tail"] != total
+            or any(v for k, v in launches.items()
+                   if k not in ("attention", "dpt_tail"))):
+        raise AssertionError(f"train_path: launches over {total} steps "
+                             f"{launches}")
+    if not all(np.isfinite(losses)) or min(losses[1:]) >= losses[0]:
+        raise AssertionError(f"train_path: losses {losses} do not fall "
+                             f"below the first")
+    checks.append(check_tail_cache(model, size, gen))
+    if not checks[-1]["derived_anew"]:
+        raise AssertionError("train_path: the tail's operands were not "
+                             "derived anew after the optimizer steps")
+
+    prof = train_profile(lambda: step(state, images, target, mask))
+    attn_bwd = attention_backward_ms(TRAIN_BATCH, tokens, layers, gen)
+    del state, adam, sched, step
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+    nccl = train_nccl(images, target, mask, xm)
+
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    out = {"phase": "train_path", "nvidia_smi_name_power_limit": smi,
+           "model": "v2/vitl metric (sigmoid x 20 m)",
+           "hidden": vit_cfg.hidden_size, "layers": vit_cfg.num_layers,
+           "heads": vit_cfg.num_heads, "dpt_features": dpt_cfg.features,
+           "master_weights": "float32", "autocast": "bfloat16",
+           "frames_per_step": TRAIN_BATCH, "model_input": list(size),
+           "tokens": tokens,
+           "optimizer": {**TRAIN_OPT, "weight_decay": opt.weight_decay,
+                         "max_grad_norm": opt.max_grad_norm},
+           "warmup_steps_run": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+           "ms_per_step": sum(med.values()), "ms_per_step_split": med,
+           "ms_split_by_step": parts,
+           "ms_per_step_host_clock": step_wall_ms,
+           "peak_memory_bytes": peak, "losses": losses,
+           "launches": launches, "launches_over_steps": total,
+           "launches_per_step": per_step, "profile": prof,
+           "plain_attention_backward": attn_bwd, "checks": checks,
+           "nccl": nccl, "phase_s": time.perf_counter() - t_phase,
+           "ok": True}
+    emit(out)
     return out
 
 
@@ -4119,13 +4872,15 @@ def main() -> int:
     sfrun = stream_fused_path(stepwise)
     del stepwise
     torch.cuda.empty_cache()
+    trun = train_path(smi)
+    torch.cuda.empty_cache()
     # row 3's third entry: the scan at 8 columns on LSD's inputs
     scan_row["lsd_8_columns"] = erun["scan_8_columns"]
     runs = {"main_path": run, "quant_path": qrun, "boundmax_path": brun,
             "odd_heads_path": orun, "depth_cli_path": crun,
             "sfm_path": srun, "fusion_cli_path": frun,
             "enhanced_cli_path": erun, "stream_path": strun,
-            "stream_fused_path": sfrun}
+            "stream_fused_path": sfrun, "train_path": trun}
     # the path whose count stands in the kernels line: the first that runs it
     for k in summary:
         counters = k.get("counters", [k["name"]])

@@ -29,6 +29,8 @@ setup(
             "depth_node = txr_slam.depth_node:main",
             "db_player_node = txr_slam.db_player_node:main",
             "check_depth = txr_slam.check_depth:main",
+            "depth_node_torch = txr_slam.depth_node_torch:main",
+            "db_player_node_torch = txr_slam.db_player_node_torch:main",
         ],
     },
 )

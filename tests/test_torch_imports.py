@@ -66,7 +66,11 @@ def test_package_has_the_slice_modules():
             "txr_torch.geometry.icp", "txr_torch.geometry.pose_graph",
             "txr_torch.geometry.appearance", "txr_torch.fusion.occupancy",
             "txr_torch.pipelines.streaming",
-            "txr_torch.pipelines.stream_step"}
+            "txr_torch.pipelines.stream_step", "txr_torch.train",
+            "txr_torch.parallel", "txr_torch.parallel.mesh",
+            "txr_torch.parallel.pipeline", "txr_torch.parallel.launch",
+            "txr_torch.utils.chamfer", "txr_torch.utils.profiling",
+            "txr_torch.ros2.nodes"}
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
@@ -203,12 +207,51 @@ def test_stream_cli_imports_the_port_alone():
     assert "clean" in r.stdout
 
 
+ROS2_SHELLS = [ROOT / "ros2_ws/src/txr_slam/txr_slam" / name for name in
+               ("depth_node_torch.py", "db_player_node_torch.py")]
+
+
+@pytest.mark.parametrize("script", ["multichip_torch.py", "db_info_torch.py",
+                                    "get_calibration_torch.py"])
+def test_root_script_imports_the_port_alone(script):
+    """Importing the script and the port modules it reaches loads neither
+    JAX nor ``txr`` and builds nothing."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', {script!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "import txr_torch.train, txr_torch.parallel.pipeline\n"
+        "import txr_torch.parallel.launch, txr_torch.io.rtabmap_db\n"
+        "import txr_torch.ros2.nodes, txr_torch.utils.chamfer\n"
+        "import txr_torch._cuda as k\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'txr'))\n"
+        "assert not bad, bad\n"
+        "assert k._lib is None\n"
+        "print('clean')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_ros2_shells_reach_the_port_only():
+    """The port's nodes (rclpy is not importable here) name ``txr_torch``
+    and log the card, not the TPU."""
+    for path in ROS2_SHELLS:
+        text = path.read_text()
+        assert "txr_torch." in text and "TPU" not in text, path
+    assert "Depth model ready on {model.device}" in ROS2_SHELLS[0].read_text()
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "depth_processor_torch.py",
        ROOT / "depth_to_reconstruction_torch.py",
        ROOT / "depth_enhanced_reconstruction_torch.py",
-       ROOT / "reconstruction_torch.py"]))
+       ROOT / "reconstruction_torch.py", ROOT / "multichip_torch.py",
+       ROOT / "db_info_torch.py", ROOT / "get_calibration_torch.py"]
+    + ROS2_SHELLS))
 def test_source_imports_no_jax_flax_txr(path):
     text = (ROOT / path).read_text()
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|txr)(?:[.\s]|$)",

@@ -1,8 +1,8 @@
 """txr_torch: the PyTorch / CUDA port of the txr reconstruction framework.
 
 The package mirrors ``txr``'s layout module for module (``core``, ``ops``,
-``models``, ``fusion``, ``geometry``, ``io``, ``pipelines``, ``ros2``,
-``utils``, ``_native``) and
+``models``, ``fusion``, ``geometry``, ``io``, ``pipelines``, ``parallel``,
+``train``, ``ros2``, ``utils``, ``_native``) and
 imports ``torch``, ``numpy`` and the standard library only (OpenCV and
 safetensors at first use where a host path needs them, Plotly at first use
 in ``utils``; rclpy, optional, in ``ros2``). Entry points

@@ -25,12 +25,16 @@ or, called without a function, as a context manager::
 
 ``TXR_F32_DOTS=0`` disables it (read at each entry), as in ``txr``: for
 attribution only, never to ship.
+
+``kernel_autocast`` is the other precision decision: the bf16 autocast
+under which training and the data-parallel fusion step run the model from
+f32 master weights on the card.
 """
 
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from functools import wraps
 
 import torch
@@ -64,3 +68,13 @@ def f32_dots(fn=None):
             return fn(*args, **kwargs)
 
     return wrapper
+
+
+def kernel_autocast(device_type: str):
+    """The precision under which the model trains and runs from f32 master
+    weights: bf16 autocast on the card, whose hand kernels take bf16 only
+    (each raises by name for another type), and nothing on the CPU, where
+    the plain versions run in f32 as ``txr`` does."""
+    if device_type == "cuda":
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+    return nullcontext()

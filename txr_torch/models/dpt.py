@@ -89,6 +89,33 @@ class Conv3x3(nn.Conv2d):
                               packed)
 
 
+class PixelShuffleUp(nn.Module):
+    """A transposed conv with stride equal to its kernel, written as one
+    (B*H*W, C) x (C, k*k*F) product and a pixel shuffle (``txr``'s
+    ``PixelShuffleUp``). Its parameters are ``nn.ConvTranspose2d``'s,
+    ``weight`` (C, F, k, k) and ``bias`` (F,), as ``txr``'s tree is
+    ``nn.ConvTranspose``'s, so converted weights load unchanged. NCHW in,
+    NCHW out, like the layer it stands for; the head keeps
+    ``nn.ConvTranspose2d``, as ``txr``'s does."""
+
+    def __init__(self, in_features: int, features: int, kernel: int):
+        super().__init__()
+        self.kernel = kernel
+        self.weight = nn.Parameter(
+            torch.empty(in_features, features, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        k = self.kernel
+        f = self.weight.shape[1]
+        y = x.permute(0, 2, 3, 1).reshape(b * h * w, c) @ self.weight.reshape(
+            c, f * k * k)
+        y = y.reshape(b, h, w, f, k, k).permute(0, 3, 1, 4, 2, 5)
+        return y.reshape(b, f, h * k, w * k) + self.bias.reshape(1, f, 1, 1)
+
+
 class ResidualConvUnit(nn.Module):
     def __init__(self, features: int):
         super().__init__()

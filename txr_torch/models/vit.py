@@ -125,14 +125,17 @@ class Attention(nn.Module):
         b, s, d = x.shape
         head_dim = d // c.num_heads
         qkv = self.qkv(x)
-        if c.use_flash is not False and c.num_heads % 2 == 0:
+        # a tensor-parallel rank holds whole heads of the fused product
+        # (txr_torch.parallel.mesh), so the head count is read off its width
+        heads = qkv.shape[-1] // (3 * head_dim)
+        if c.use_flash is not False and heads % 2 == 0:
             # the kernel reads the fused layout in place
-            o = fused_attention(qkv, c.num_heads, head_dim, kv_len)
+            o = fused_attention(qkv, heads, head_dim, kv_len)
         else:
-            q, k, v = split_heads(qkv, c.num_heads, head_dim)
+            q, k, v = split_heads(qkv, heads, head_dim)
             o = multi_head_attention(q, k, v, kv_len=kv_len,
                                      use_flash=c.use_flash)
-            o = o.transpose(1, 2).reshape(b, s, d)
+            o = o.transpose(1, 2).reshape(b, s, heads * head_dim)
         return self.proj(o)
 
 

@@ -128,15 +128,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1]
     s = k.shape[2]
     # f32 products of the stored values: exact for bf16 operands, so this is
-    # the f32-accumulated product the kernel computes
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    logits = logits * (d ** -0.5)
-    if kv_len is not None and kv_len < s:
-        kidx = torch.arange(s, device=q.device)
-        logits = torch.where(kidx < kv_len, logits,
-                             torch.full_like(logits, _NEG_INF))
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+    # the f32-accumulated product the kernel computes. Autocast (training on
+    # the card) would round them to bf16, so it is off in here.
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        logits = logits * (d ** -0.5)
+        if kv_len is not None and kv_len < s:
+            kidx = torch.arange(s, device=q.device)
+            logits = torch.where(kidx < kv_len, logits,
+                                 torch.full_like(logits, _NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
 def key_norm_plain(k: torch.Tensor) -> torch.Tensor:
@@ -162,14 +164,15 @@ def attention_boundmax_plain(q: torch.Tensor, k: torch.Tensor,
     about 83 nats of the bound; beyond, p saturates at 2^60 and the result
     stays finite."""
     c = q.shape[-1] ** -0.5 * _LOG2E
-    qf = q.float() * c
-    s = torch.matmul(qf.to(q.dtype).float(), k.float().transpose(-1, -2))
-    qn = (qf * qf).sum(-1, keepdim=True).sqrt()
-    m = torch.clamp(qn * key_norm_plain(k)[..., None, None], max=60.0)
-    p = torch.exp2(torch.clamp(s - m, max=60.0))
-    l = p.sum(-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), v.float())
-    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+    with torch.autocast(q.device.type, enabled=False):   # f32 products
+        qf = q.float() * c
+        s = torch.matmul(qf.to(q.dtype).float(), k.float().transpose(-1, -2))
+        qn = (qf * qf).sum(-1, keepdim=True).sqrt()
+        m = torch.clamp(qn * key_norm_plain(k)[..., None, None], max=60.0)
+        p = torch.exp2(torch.clamp(s - m, max=60.0))
+        l = p.sum(-1, keepdim=True)
+        acc = torch.matmul(p.to(v.dtype).float(), v.float())
+        return (acc / l.clamp(min=1e-30)).to(q.dtype)
 
 
 def split_heads(qkv: torch.Tensor, num_heads: int, head_dim: int):
