@@ -170,7 +170,11 @@ def build_model(version: str = "v2", encoder: str = "vitl",
         fused_head=knob.get(os.environ.get("TXR_FUSED_HEAD", "")),
         fused_convs=knob.get(os.environ.get("TXR_FUSED_CONVS", "")),
     )
-    model = DepthAnything(vit, dpt)
+    # built on its device: the modules' own initialisation, which
+    # init_weights overwrites, is then no host-side pass over ViT-G's 1.1 B
+    # parameters
+    with torch.device(dev):
+        model = DepthAnything(vit, dpt)
     if generator is None:
         generator = torch.Generator(device="cpu").manual_seed(0)
     model.init_weights(generator)
