@@ -1,0 +1,406 @@
+"""The port's spans and counters (``txr_torch/utils/profiling.py``) on the
+main path, and the benchmark's reduction of them (``port_bench/lib/
+spans.py``), on the CPU with a tiny model and map.
+
+With a profiler recording, one step (the model's forward, then the insert
+of the step's points) opens every ``txr.*`` span, nested as the calls
+are, and counts the rows sorted and the valid points; with none, no
+profiler range is entered, no counter is kept and the insert runs no
+extra reduction. ``spans.reduce`` gives each span's calls and host time,
+and the ``txr.*`` ranges leave ``trace.reduce``'s device numbers as they
+were without them.
+"""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from port_bench.lib import spans as spans_mod
+from port_bench.lib import trace
+from txr_torch.core.types import PointSet
+from txr_torch.fusion.offset_map import create_offset_map, offset_map_insert
+from txr_torch.models.depth_anything import DepthAnything
+from txr_torch.models.dpt import DPTConfig
+from txr_torch.models.vit import ViTConfig
+from txr_torch.utils import profiling
+
+CAPACITY = 1 << 10
+FRAMES, H, W = 2, 84, 140        # a 6 x 10 patch grid; the embedding's is 4
+LAYERS = 2
+
+# span -> the innermost txr. span around it (None: outermost)
+PARENT = {
+    "txr.models.forward": None,
+    "txr.models.encoder": "txr.models.forward",
+    "txr.models.encoder.pos_embed": "txr.models.encoder",
+    "txr.models.encoder.attention": "txr.models.encoder",
+    "txr.models.head": "txr.models.forward",
+    "txr.fusion.insert": None,
+    "txr.fusion.insert.pack": "txr.fusion.insert",
+    "txr.fusion.insert.count": "txr.fusion.insert",
+    "txr.fusion.insert.sort": "txr.fusion.insert",
+    "txr.fusion.insert.reduce": "txr.fusion.insert",
+}
+CALLS = {name[len("txr."):]: (LAYERS if name.endswith("attention") else 1)
+         for name in PARENT}
+
+
+@pytest.fixture(scope="module")
+def model():
+    torch.manual_seed(0)
+    vit = ViTConfig(hidden_size=32, num_layers=LAYERS, num_heads=2,
+                    pos_embed_size=4, out_layers=(0, 0, 1, 1))
+    dpt = DPTConfig(features=8, out_channels=(8, 8, 16, 16), head_hidden=8,
+                    metric=True)
+    return DepthAnything(vit, dpt).eval()
+
+
+def points(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    xyz = torch.rand(n, 3, generator=g) * 0.5
+    rgb = torch.rand(n, 3, generator=g)
+    mask = torch.rand(n, generator=g) > 0.3
+    return PointSet(xyz, rgb, mask)
+
+
+@torch.no_grad()
+def step(model, vm, seed=0):
+    """The main path's shape: depth from the model, then its pixels'
+    points into the map."""
+    g = torch.Generator().manual_seed(seed)
+    depth = model(torch.rand(FRAMES, H, W, 3, generator=g))
+    pts = points(depth.numel(), seed)
+    return offset_map_insert(vm, pts), pts
+
+
+def profiled(fn):
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return prof, out
+
+
+def txr_parent(ev):
+    p = ev.cpu_parent
+    while p is not None and not p.name.startswith("txr."):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+def test_spans_nest_as_the_calls(model):
+    prof, _ = profiled(lambda: step(model, create_offset_map(CAPACITY,
+                                                             0.01, "cpu")))
+    evs = [e for e in prof.events() if e.name.startswith("txr.")]
+    assert {e.name for e in evs} == set(PARENT)
+    for e in evs:
+        assert txr_parent(e) == PARENT[e.name], e.name
+    start = {e.name: e.time_range.start for e in evs}
+    assert start["txr.fusion.insert.pack"] < start["txr.fusion.insert.sort"] \
+        < start["txr.fusion.insert.reduce"]
+    assert start["txr.models.encoder"] < start["txr.models.head"]
+
+
+class CountingRange:
+    entered = 0
+
+    def __init__(self, name):
+        self.inner = CountingRange.real(name)
+
+    def __enter__(self):
+        CountingRange.entered += 1
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        return self.inner.__exit__(*exc)
+
+
+class MaskReductions(TorchDispatchMode):
+    """Records each reduction whose input is ``mask``."""
+
+    def __init__(self, mask):
+        super().__init__()
+        self.mask, self.seen = mask, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if "sum" in str(func) and any(a is self.mask for a in args):
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("recording", [False, True, "capturing"])
+def test_without_a_profiler_nothing_is_entered_or_counted(
+        model, monkeypatch, recording):
+    CountingRange.real = profiling._Range
+    CountingRange.entered = 0
+    monkeypatch.setattr(profiling, "_Range", CountingRange)
+    vm = create_offset_map(CAPACITY, 0.01, "cpu")
+    pts = points(3000, 7)
+    mode = MaskReductions(pts.mask)
+
+    def run():
+        step(model, vm)
+        with mode, torch.no_grad():
+            offset_map_insert(vm, pts)
+
+    if recording == "capturing":
+        # a CUDA graph being captured: spans only, no counter, no sum
+        monkeypatch.setattr(profiling, "_capturing", lambda: True)
+        profiled(run)
+        assert CountingRange.entered >= sum(CALLS.values())
+        assert mode.seen == [] and profiling.counters() == {}
+    elif recording:
+        profiled(run)
+        assert CountingRange.entered >= sum(CALLS.values())
+        assert mode.seen and profiling.counters()
+    else:
+        profiling.reset_counters()
+        run()
+        assert CountingRange.entered == 0
+        assert mode.seen == []
+        assert profiling.counters() == {}
+        assert profiling.span("models.encoder") is \
+            profiling.span("fusion.insert")
+
+
+@pytest.mark.parametrize("inserts", [1, 2])
+def test_insert_counters(inserts):
+    vm = create_offset_map(CAPACITY, 0.01, "cpu")
+    batches = [points(2500 + 100 * i, i) for i in range(inserts)]
+
+    def run():
+        out = vm
+        for b in batches:
+            out = offset_map_insert(out, b)
+        return out
+
+    profiled(run)
+    got = profiling.counters()
+    assert got["fusion.points_valid"] == sum(int(b.mask.sum())
+                                             for b in batches)
+    assert got["fusion.rows_sorted"] == sum(CAPACITY + b.mask.shape[0]
+                                            for b in batches)
+    profiling.reset_counters()
+    assert profiling.counters() == {}
+
+
+def test_a_tensor_counter_sums_on_its_device_and_reads_once():
+    profiled(lambda: [profiling.count("t", torch.tensor(v))
+                      for v in (3, 4, True)] + [profiling.count("h", 5)])
+    got = profiling.counters()
+    assert got == {"t": 8, "h": 5}
+    assert profiling._device_counts["t"].dtype == torch.int64
+
+
+def test_span_reduction_on_a_cpu_profile(model):
+    prof, _ = profiled(lambda: step(model, create_offset_map(CAPACITY,
+                                                             0.01, "cpu")))
+    red = spans_mod.reduce(prof)
+    assert red["calls"] == CALLS
+    host = red["host_s"]
+    for name, parent in PARENT.items():
+        assert host[name[4:]] > 0
+        if parent is not None:
+            assert host[name[4:]] <= host[parent[4:]], name
+    assert red["syncs"] == 0 and red["device_s"] == {}
+
+
+# ----------------------------------------- a trace with device activity
+
+CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+
+class Ev(SimpleNamespace):
+    """One event of a profiler's trace, with the accessors both reducers
+    call; ``kind`` None stands for a PyTorch whose events have no
+    ``activity_type``."""
+
+    def name(self):
+        return self.n
+
+    def device_type(self):
+        return self.dev
+
+    def activity_type(self):
+        if self.kind is None:
+            raise AttributeError("activity_type")
+        return self.kind
+
+    def start_ns(self):
+        return self.s
+
+    def duration_ns(self):
+        return self.d
+
+    def correlation_id(self):
+        return self.corr
+
+    def linked_correlation_id(self):
+        return self.link
+
+    def start_thread_id(self):
+        return self.tid
+
+
+class Prof:
+    """What ``trace.reduce`` and ``spans.reduce`` read of a profiler."""
+
+    def __init__(self, events):
+        self.profiler = SimpleNamespace(
+            kineto_results=SimpleNamespace(events=lambda: list(events)))
+
+
+def synthetic_trace(skew_ns=0, kinds=True, device_ranges=False):
+    """Two steps on one host thread: a harness range around an encoder
+    span holding two launches; an insert span holding a sort (with the
+    profiler's own "Command Buffer Full" under its correlation id), a
+    kernel the span launches itself (no PyTorch operation around it) and a
+    blocking device-to-host copy; the device's work, with idle gaps between
+    them. Device times read ``skew_ns`` early. ``device_ranges`` adds the
+    device-side copies a user-annotation range would have."""
+    evs, corr = [], [100]
+
+    def nxt():
+        corr[0] += 1
+        return corr[0]
+
+    def ev(**kw):
+        kw["kind"] = kw["kind"] if kinds else None
+        evs.append(Ev(**kw))
+        return evs[-1]
+
+    for k in range(2):
+        t0 = k * 1_000_000
+        ev(n="port_bench.depth", dev=CPU, kind="user_annotation", s=t0,
+           d=400_000, corr=nxt(), link=0, tid=1)
+        enc = ev(n="txr.models.encoder", dev=CPU, kind="cpu_op",
+                 s=t0 + 10_000, d=300_000, corr=nxt(), link=0, tid=1)
+        ins = ev(n="txr.fusion.insert", dev=CPU, kind="cpu_op",
+                 s=t0 + 500_000, d=200_000, corr=nxt(), link=0, tid=1)
+        launches = [(t0 + 20_000, "aten::mm", "gemm", 300_000),
+                    (t0 + 30_000, "aten::add", "add", 100_000),
+                    (t0 + 510_000, "aten::sort", "radix_sort", 150_000),
+                    (t0 + 600_000, None, "offset_reduce", 50_000)]
+        dev_t = t0 + 40_000
+        for s, op, kern, dur in launches:
+            c_rt = nxt()
+            if op is None:                 # launched by the span itself
+                c_op = ins.corr
+            else:
+                c_op = nxt()
+                ev(n=op, dev=CPU, kind="cpu_op", s=s, d=5_000, corr=c_op,
+                   link=0, tid=1)
+            if op == "aten::sort":
+                ev(n="Command Buffer Full", dev=CPU, kind="overhead",
+                   s=s + 1_500, d=100, corr=c_op, link=0, tid=1)
+            ev(n="cudaLaunchKernel", dev=CPU, kind="cuda_runtime",
+               s=s + 1_000, d=2_000, corr=c_rt, link=c_op, tid=1)
+            dev_t = max(dev_t, s + 3_000)
+            ev(n=kern, dev=CUDA, kind="kernel", s=dev_t - skew_ns, d=dur,
+               corr=c_rt, link=c_op, tid=7)
+            dev_t += dur + 20_000
+        c_op, c_rt = nxt(), nxt()
+        ev(n="aten::item", dev=CPU, kind="cpu_op", s=t0 + 680_000,
+           d=10_000, corr=c_op, link=0, tid=1)
+        ev(n="cudaMemcpyAsync", dev=CPU, kind="cuda_runtime",
+           s=t0 + 681_000, d=5_000, corr=c_rt, link=c_op, tid=1)
+        ev(n="Memcpy DtoH (Device -> Pinned)", dev=CUDA, kind="gpu_memcpy",
+           s=dev_t - skew_ns, d=1_000, corr=c_rt, link=c_op, tid=7)
+        if device_ranges:
+            for span in (enc, ins):
+                ev(n=span.n, dev=CUDA, kind="gpu_user_annotation",
+                   s=span.s + 30_000 - skew_ns, d=span.d, corr=0, link=0,
+                   tid=7)
+    return evs
+
+
+def without_txr(events):
+    return [e for e in events if not e.name().startswith("txr.")]
+
+
+class Filtered:
+    """A real profile with its ``txr.`` events taken out."""
+
+    def __init__(self, prof):
+        evs = without_txr(prof.profiler.kineto_results.events())
+        self.profiler = SimpleNamespace(
+            kineto_results=SimpleNamespace(events=lambda: evs))
+
+
+def test_spans_are_host_operations(model):
+    """A span is recorded as a host operation, not a user annotation, so it
+    puts no range on the device's timeline."""
+    prof, _ = profiled(lambda: step(model, create_offset_map(CAPACITY,
+                                                             0.01, "cpu")))
+    kinds = {e.activity_type() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("txr.")}
+    assert kinds == {"cpu_op"}
+
+
+@pytest.mark.parametrize("source", ["host_spans", "device_ranges", "cpu"])
+def test_txr_spans_leave_the_device_trace_as_it_was(model, source):
+    if source == "cpu":
+        with_spans, _ = profiled(lambda: step(
+            model, create_offset_map(CAPACITY, 0.01, "cpu")))
+        without = Filtered(with_spans)
+    else:
+        # host spans on a PyTorch without activity kinds; device-side
+        # ranges where the kinds tell them from work
+        evs = synthetic_trace(kinds=source == "device_ranges",
+                              device_ranges=source == "device_ranges")
+        with_spans, without = Prof(evs), Prof(without_txr(evs))
+    a, b = trace.reduce(with_spans), trace.reduce(without)
+    for key in ("busy_s", "window_s", "by_name", "device_ops"):
+        assert a[key] == b[key], key
+    # the same gaps; a kernel that no PyTorch operation launched is no
+    # longer "unlinked" but named by the span that launched it
+    assert [g[1] for g in a["idle_gaps"]] == [g[1] for g in b["idle_gaps"]]
+    for (la, _), (lb, _) in zip(a["idle_gaps"], b["idle_gaps"]):
+        assert la == lb or (lb == "unlinked" and la.startswith("txr.")), \
+            (la, lb)
+    if source != "cpu":
+        assert a["device_ops"] == 10 and a["busy_s"] > 0
+        assert b["unlinked_device_s"] == pytest.approx(2 * 50e-6)
+        assert a["unlinked_device_s"] == 0.0
+
+
+@pytest.mark.parametrize("zero_id_event", [False, True])
+def test_synthetic_span_reduction(zero_id_event):
+    evs = synthetic_trace(kinds=False)
+    if zero_id_event:
+        # a kernel that nothing launched, and a host event with
+        # correlation id 0 after it: neither is linked to the other
+        evs += [Ev(n="Activity Buffer Request", dev=CPU, kind=None,
+                   s=1_990_000, d=1_000, corr=0, link=0, tid=1),
+                Ev(n="memset", dev=CUDA, kind=None, s=1_950_000, d=1_000,
+                   corr=999, link=0, tid=7)]
+    red = spans_mod.reduce(Prof(evs))
+    assert red["calls"] == {"models.encoder": 2, "fusion.insert": 2}
+    assert red["device_s"]["models.encoder"] == pytest.approx(2 * 400e-6)
+    # the sort, the span's own kernel and the copy
+    assert red["device_s"]["fusion.insert"] == pytest.approx(2 * 201e-6)
+    assert red["unlinked_device_s"] == pytest.approx(
+        1e-6 if zero_id_event else 0.0)
+    assert red["syncs"] == 2
+    assert red["syncs_by_span"] == {"fusion.insert/cudaMemcpyAsync": 2}
+    assert red["clock_skew_us"] == 0.0
+    assert red["launch_lag_us_median"] > 0
+    labels = {g[0] for g in red["idle_gaps_by_span"]}
+    assert labels <= {"models.encoder", "fusion.insert", spans_mod.NO_SPAN}
+    assert len(red["idle_gaps_by_span"]) == (10 if zero_id_event else 9)
+
+
+def test_a_skewed_device_clock_is_measured_and_bounds_the_gaps():
+    skew = 50_000
+    red = spans_mod.reduce(Prof(synthetic_trace(skew_ns=skew)))
+    # the sort's kernel starts 2 us after its launch call, 3 us after its
+    # operation
+    assert red["clock_skew_parts_us"] == pytest.approx(
+        {"launch": (skew - 2_000) / 1e3, "op": (skew - 3_000) / 1e3})
+    assert red["clock_skew_us"] == pytest.approx((skew - 2_000) / 1e3)
+    for label, secs in red["idle_gaps_by_span"]:
+        assert (label == "unresolved") == (secs * 1e9 < 2 * (skew - 2_000))
+    assert any(g[0] == "unresolved" for g in red["idle_gaps_by_span"])
+    assert any(g[0] != "unresolved" for g in red["idle_gaps_by_span"])

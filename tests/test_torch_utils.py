@@ -4,7 +4,6 @@ and profiling helpers (``txr_torch/utils``), the RTAB-Map database scripts
 (``txr_torch/ros2/nodes.py``) and ``PixelShuffleUp``."""
 
 import json
-import logging
 import sys
 
 import jax
@@ -20,7 +19,8 @@ from txr_torch.io.ply import write_ply
 from txr_torch.models.convert import from_txr_params
 from txr_torch.models.dpt import PixelShuffleUp
 from txr_torch.utils.chamfer import chamfer_between_plys, chamfer_distance
-from txr_torch.utils.profiling import FPSCounter, maybe_trace
+from txr_torch.models.vit import ViTConfig, ViTEncoder
+from txr_torch.utils.profiling import maybe_trace
 
 torch.set_num_threads(1)
 
@@ -95,22 +95,17 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
         torch.ones(3).sum()
     assert not list(tmp_path.iterdir())
     monkeypatch.setenv("TXR_TRACE_DIR", str(tmp_path))
-    with maybe_trace("step"):
+    encoder = ViTEncoder(ViTConfig(hidden_size=32, num_layers=1,
+                                   num_heads=2, pos_embed_size=2,
+                                   out_layers=(0,)))
+    with maybe_trace("step"), torch.no_grad():
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        encoder(torch.zeros(1, 28, 42, 3))
     trace = json.loads((tmp_path / "step" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "aten::matmul" in names or "aten::mm" in names
-
-
-def test_fps_counter_logs_every_n(caplog):
-    c = FPSCounter(log_every=5, name="t")
-    with caplog.at_level(logging.INFO, logger="txr_torch.utils.profiling"):
-        for _ in range(11):
-            fps = c.tick()
-    assert c.count == 11 and fps > 0
-    logged = [r.getMessage() for r in caplog.records]
-    assert len(logged) == 2 and "processed 10 frames" in logged[1]
-    assert "11 frames" in c.summary()
+    assert {"txr.models.encoder", "txr.models.encoder.attention",
+            "txr.models.encoder.pos_embed"} <= names
 
 
 def _run_main(module, argv, monkeypatch, capsys) -> str:

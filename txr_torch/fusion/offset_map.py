@@ -41,6 +41,7 @@ from txr_torch.core.types import PointSet
 from txr_torch.fusion.keys import pack_keys, unpack_keys
 from txr_torch.ops.scan import offset_reduce, segmented_cumsum_cols
 from txr_torch.ops.segment import INT_MAX
+from txr_torch.utils.profiling import count, recording, span
 
 _BIAS = 1 << 31
 _MASK32 = 0xFFFFFFFF
@@ -152,15 +153,25 @@ def offset_map_insert(vm: OffsetVoxelMap, points: PointSet) -> OffsetVoxelMap:
 
     As ``txr`` donates its map state, the returned map is the only valid one
     afterwards: the implementation is free to reuse the old map's buffers.
+
+    While a profiler records, it counts the rows it sorts
+    (``fusion.rows_sorted``) and the batch's valid points
+    (``fusion.points_valid``), neither with a host sync.
     """
-    return _reduce_packed(_insert_cols(vm, points), vm.khi.shape[0],
-                          vm.voxel_size)
+    with span("fusion.insert"):
+        cols = _insert_cols(vm, points)
+        if recording():
+            with span("fusion.insert.count"):
+                count("fusion.rows_sorted", cols[0].shape[0])
+                count("fusion.points_valid", points.mask.sum())
+        return _reduce_packed(cols, vm.khi.shape[0], vm.voxel_size)
 
 
 def _insert_cols(vm: OffsetVoxelMap, points: PointSet):
     """The map's packed rows followed by the batch's."""
-    bcols = _point_cols(points, vm.voxel_size)
-    return tuple(torch.cat([v, b]) for v, b in zip(vm[:NCOLS], bcols))
+    with span("fusion.insert.pack"):
+        bcols = _point_cols(points, vm.voxel_size)
+        return tuple(torch.cat([v, b]) for v, b in zip(vm[:NCOLS], bcols))
 
 
 def offset_map_scan_inputs(vm: OffsetVoxelMap, points: PointSet):
@@ -188,12 +199,14 @@ def offset_map_merge(a: OffsetVoxelMap, b: OffsetVoxelMap) -> OffsetVoxelMap:
 def _sort_keys(cols):
     """One stable sort on the fused (khi, klo_x) int64 key: the sorted key
     and its permutation; the payload follows by gather."""
-    key = (cols[0].long() << 32) | (cols[1].long() + _BIAS)
-    return torch.sort(key, stable=True)
+    with span("fusion.insert.sort"):
+        key = (cols[0].long() << 32) | (cols[1].long() + _BIAS)
+        return torch.sort(key, stable=True)
 
 
-def _sorted_contributions(cols):
-    """Sort the packed rows by voxel key and unpack what the reduce sums.
+def _sorted_contributions(cols, sorted_keys=None):
+    """Sort the packed rows by voxel key (or take ``sorted_keys``, what
+    ``_sort_keys(cols)`` returned) and unpack what the reduce sums.
 
     Returns (skhi, sklo, wcols, last, starts): the sorted key columns
     (int64), the seven weighted f32 contribution columns, and the bool
@@ -202,7 +215,7 @@ def _sorted_contributions(cols):
     n = cols[0].shape[0]
     dev = cols[0].device
     # Both keys come back out of the sorted key itself.
-    skey, perm = _sort_keys(cols)
+    skey, perm = sorted_keys or _sort_keys(cols)
     skhi = skey >> 32                     # int64, sign kept
     u = skey & _MASK32                    # klo_x with its sign xor undone
     sklo, u_x = u >> 10, u & 0x3FF
@@ -232,18 +245,21 @@ def _sorted_contributions(cols):
 def _reduce_packed(cols, cap: int, voxel_size) -> OffsetVoxelMap:
     """Sort the packed rows and reduce each voxel segment to one map row:
     the plain version on the CPU, the fused kernel on the card."""
-    if cols[0].device.type == "cpu":
-        return _reduce_unfused(cols, cap, voxel_size)
-    skey, perm = _sort_keys(cols)
-    out = _empty_map(cap, voxel_size)
-    offset_reduce(skey, perm, cols[2], cols[3], out[:NCOLS])
-    return out
+    sorted_keys = _sort_keys(cols)
+    with span("fusion.insert.reduce"):
+        if cols[0].device.type == "cpu":
+            return _reduce_unfused(cols, cap, voxel_size, sorted_keys)
+        out = _empty_map(cap, voxel_size)
+        offset_reduce(*sorted_keys, cols[2], cols[3], out[:NCOLS])
+        return out
 
 
-def _reduce_unfused(cols, cap: int, voxel_size) -> OffsetVoxelMap:
+def _reduce_unfused(cols, cap: int, voxel_size,
+                    sorted_keys=None) -> OffsetVoxelMap:
     """The reduce as separate PyTorch operations (and, for a CUDA tensor,
     the standalone scan kernel): the plain version of the fused kernel."""
-    skhi, sklo, wcols, last, starts = _sorted_contributions(cols)
+    skhi, sklo, wcols, last, starts = _sorted_contributions(cols,
+                                                            sorted_keys)
 
     # The value at a segment's END row is exactly that segment's total.
     seg = segmented_cumsum_cols(wcols, starts)

@@ -41,6 +41,7 @@ from txr_torch.ops.resize import (
     resize_bicubic,
     resize_bilinear,
 )
+from txr_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -99,8 +100,9 @@ class DepthAnything(nn.Module):
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         ph = pixels.shape[1] // self.vit.patch_size
         pw = pixels.shape[2] // self.vit.patch_size
-        hidden = self.encoder(pixels)
-        return self.head(hidden, ph, pw, self.vit.patch_size)
+        with span("models.forward"):
+            hidden = self.encoder(pixels)
+            return self.head(hidden, ph, pw, self.vit.patch_size)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from txr_torch.core.derived import Derived
 from txr_torch.ops.conv_stripe import conv3x3_stripe, pack_weight
 from txr_torch.ops.dpt_tail import fused_head_tail, pack_conv2
+from txr_torch.utils.profiling import span
 
 # FeatureFusionBlock sends its residual units through the 3x3 conv kernel
 # only on maps of at least this many pixels (txr's gate)
@@ -208,48 +209,52 @@ class DPTHead(nn.Module):
 
         Returns depth (B, ph*patch_size, pw*patch_size).
         """
-        c = self.cfg
-        feats = []
-        # Reassemble: drop cls, reshape to maps, project, resize per stage.
-        for i, hs in enumerate(hidden_states):
-            b = hs.shape[0]
-            x = hs[:, 1:].reshape(b, ph, pw, hs.shape[-1]).permute(0, 3, 1, 2)
-            x = getattr(self, f"project_{i}")(x)
-            if i == 0:      # 4x up
-                x = self.resize_0(x)
-            elif i == 1:    # 2x up
-                x = self.resize_1(x)
-            elif i == 3:    # 2x down
-                x = self.resize_3(x)
-            feats.append(getattr(self, f"scratch_{i}")(x))
+        with span("models.head"):
+            c = self.cfg
+            feats = []
+            # Reassemble: drop cls, reshape to maps, project, resize per stage.
+            for i, hs in enumerate(hidden_states):
+                b = hs.shape[0]
+                x = hs[:, 1:].reshape(b, ph, pw, hs.shape[-1]).permute(
+                    0, 3, 1, 2)
+                x = getattr(self, f"project_{i}")(x)
+                if i == 0:      # 4x up
+                    x = self.resize_0(x)
+                elif i == 1:    # 2x up
+                    x = self.resize_1(x)
+                elif i == 3:    # 2x down
+                    x = self.resize_3(x)
+                feats.append(getattr(self, f"scratch_{i}")(x))
 
-        # Top-down fusion (refinenet4 -> refinenet1). Each block upsamples to
-        # the next stage's spatial size (HF fusion_stage semantics).
-        f1, f2, f3, f4 = feats
-        y = self.fusion_3(f4, size=f3.shape[2:])
-        y = self.fusion_2(y, f3, size=f2.shape[2:])
-        y = self.fusion_1(y, f2, size=f1.shape[2:])
-        y = self.fusion_0(y, f1)
+            # Top-down fusion (refinenet4 -> refinenet1). Each block upsamples
+            # to the next stage's spatial size (HF fusion_stage semantics).
+            f1, f2, f3, f4 = feats
+            y = self.fusion_3(f4, size=f3.shape[2:])
+            y = self.fusion_2(y, f3, size=f2.shape[2:])
+            y = self.fusion_1(y, f2, size=f1.shape[2:])
+            y = self.fusion_0(y, f1)
 
-        # Output head.
-        out_h, out_w = ph * patch_size, pw * patch_size
-        if c.fused_head is False:
-            y = self.head_conv1(y)
-            y = _bilinear(y, (out_h, out_w), align_corners=True)
-            y = F.relu(self.head_conv2(y))
-            y = self.head_conv3(y)[:, 0]
-        else:
-            # channels_last memory IS contiguous NHWC: the permute is a view
-            # and contiguous() copies only if the conv chose another format.
-            if c.fused_convs:
-                x = self.head_conv1.fused(y.permute(0, 2, 3, 1), False)
+            # Output head.
+            out_h, out_w = ph * patch_size, pw * patch_size
+            if c.fused_head is False:
+                y = self.head_conv1(y)
+                y = _bilinear(y, (out_h, out_w), align_corners=True)
+                y = F.relu(self.head_conv2(y))
+                y = self.head_conv3(y)[:, 0]
             else:
-                x = self.head_conv1(y).permute(0, 2, 3, 1).contiguous()
-            w2 = self.head_conv2.weight.permute(2, 3, 1, 0)   # (3, 3, C, F)
-            y = fused_head_tail(x, w2, self.head_conv2.bias,
-                                self.head_conv3.weight.reshape(-1),
-                                self.head_conv3.bias, out_h, out_w,
-                                self.tail_operands() if x.is_cuda else None)
-        if c.metric:
-            return torch.sigmoid(y) * c.max_depth
-        return F.relu(y)
+                # channels_last memory IS contiguous NHWC: the permute is a
+                # view and contiguous() copies only if the conv chose another
+                # format.
+                if c.fused_convs:
+                    x = self.head_conv1.fused(y.permute(0, 2, 3, 1), False)
+                else:
+                    x = self.head_conv1(y).permute(0, 2, 3, 1).contiguous()
+                # (3, 3, C, F)
+                w2 = self.head_conv2.weight.permute(2, 3, 1, 0)
+                y = fused_head_tail(
+                    x, w2, self.head_conv2.bias,
+                    self.head_conv3.weight.reshape(-1), self.head_conv3.bias,
+                    out_h, out_w, self.tail_operands() if x.is_cuda else None)
+            if c.metric:
+                return torch.sigmoid(y) * c.max_depth
+            return F.relu(y)

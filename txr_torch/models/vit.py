@@ -31,6 +31,7 @@ from txr_torch.ops.attention import (fused_attention, multi_head_attention,
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import Int8LinearFused
 from txr_torch.ops.resize import resize_bicubic
+from txr_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -128,14 +129,15 @@ class Attention(nn.Module):
         # a tensor-parallel rank holds whole heads of the fused product
         # (txr_torch.parallel.mesh), so the head count is read off its width
         heads = qkv.shape[-1] // (3 * head_dim)
-        if c.use_flash is not False and heads % 2 == 0:
-            # the kernel reads the fused layout in place
-            o = fused_attention(qkv, heads, head_dim, kv_len)
-        else:
-            q, k, v = split_heads(qkv, heads, head_dim)
-            o = multi_head_attention(q, k, v, kv_len=kv_len,
-                                     use_flash=c.use_flash)
-            o = o.transpose(1, 2).reshape(b, s, heads * head_dim)
+        with span("models.encoder.attention"):
+            if c.use_flash is not False and heads % 2 == 0:
+                # the kernel reads the fused layout in place
+                o = fused_attention(qkv, heads, head_dim, kv_len)
+            else:
+                q, k, v = split_heads(qkv, heads, head_dim)
+                o = multi_head_attention(q, k, v, kv_len=kv_len,
+                                         use_flash=c.use_flash)
+                o = o.transpose(1, 2).reshape(b, s, heads * head_dim)
         return self.proj(o)
 
 
@@ -186,34 +188,37 @@ class ViTEncoder(nn.Module):
         pos = self.pos_embed
         if (ph, pw) == (c.pos_embed_size, c.pos_embed_size):
             return pos
-        d = pos.shape[-1]
-        pos_patch = pos[:, 1:].reshape(1, c.pos_embed_size, c.pos_embed_size,
-                                       d)
-        pos_patch = resize_bicubic(pos_patch, ph, pw, align_corners=False)
-        return torch.cat([pos[:, :1], pos_patch.reshape(1, ph * pw, d)],
-                         dim=1)
+        with span("models.encoder.pos_embed"):
+            d = pos.shape[-1]
+            pos_patch = pos[:, 1:].reshape(1, c.pos_embed_size,
+                                           c.pos_embed_size, d)
+            pos_patch = resize_bicubic(pos_patch, ph, pw, align_corners=False)
+            return torch.cat([pos[:, :1], pos_patch.reshape(1, ph * pw, d)],
+                             dim=1)
 
     def forward(self, pixels: torch.Tensor) -> List[torch.Tensor]:
         """pixels: (B, H, W, 3) normalized; H, W multiples of patch_size."""
-        c = self.cfg
-        b, h, w, _ = pixels.shape
-        ph, pw = h // c.patch_size, w // c.patch_size
+        with span("models.encoder"):
+            c = self.cfg
+            b, h, w, _ = pixels.shape
+            ph, pw = h // c.patch_size, w // c.patch_size
 
-        # NHWC viewed as NCHW is channels_last memory: no copy on the way in,
-        # and the conv's channels_last result reshapes to tokens for free.
-        x = self.patch_embed(pixels.permute(0, 3, 1, 2))
-        x = x.permute(0, 2, 3, 1).reshape(b, ph * pw, c.hidden_size)
+            # NHWC viewed as NCHW is channels_last memory: no copy on the way
+            # in, and the conv's channels_last result reshapes to tokens for
+            # free.
+            x = self.patch_embed(pixels.permute(0, 3, 1, 2))
+            x = x.permute(0, 2, 3, 1).reshape(b, ph * pw, c.hidden_size)
 
-        pos = self.interpolate_pos_embed(ph, pw)
-        x = torch.cat([self.cls_token.expand(b, -1, -1).to(x.dtype), x],
-                      dim=1)
-        x = x + pos.to(x.dtype)
+            pos = self.interpolate_pos_embed(ph, pw)
+            x = torch.cat([self.cls_token.expand(b, -1, -1).to(x.dtype), x],
+                          dim=1)
+            x = x + pos.to(x.dtype)
 
-        collected = {}
-        want = set(c.out_layers)
-        for i in range(c.num_layers):
-            x = getattr(self, f"block_{i}")(x)
-            if i in want:
-                collected[i] = self.norm(x)
-        # One output per requested index, duplicates allowed.
-        return [collected[i] for i in c.out_layers]
+            collected = {}
+            want = set(c.out_layers)
+            for i in range(c.num_layers):
+                x = getattr(self, f"block_{i}")(x)
+                if i in want:
+                    collected[i] = self.norm(x)
+            # One output per requested index, duplicates allowed.
+            return [collected[i] for i in c.out_layers]

@@ -1,11 +1,28 @@
-"""Profiling and throughput instrumentation, the counterpart of
-``txr/utils/profiling.py``.
+"""Spans, counters and the Chrome-trace exporter: the port's tracing, the
+counterpart of ``txr/utils/profiling.py``.
+
+``span(name)`` is a ``torch.profiler`` range named ``txr.<name>`` while a
+profiler is recording, and one shared no-op context otherwise, so the
+layers of the main path (the encoder, its attention and position
+embedding, the head; the insert's pack, sort and reduce) carry their
+ranges at no cost when nobody traces. Ranges nest as the calls do; they
+launch no device work, so a CUDA-graph capture is unaffected. A range is
+recorded as a host operation (``_RecordFunctionFast``), not as a user
+annotation (``record_function``): it adds no range to the device's
+timeline, which a reading of the trace would count as device work, and
+the kernels the port launches itself (``txr_torch._cuda``, outside any
+PyTorch operation) are linked to the innermost span that launched them.
+
+``count(name, value)`` adds a host int or a 0-d tensor to the counter
+``name``, again only while a profiler is recording and never while a CUDA
+stream is capturing. Tensor values are summed on their device, one int64
+tensor per name, and read with one sync by ``counters()``;
+``reset_counters()`` clears them all.
 
 ``maybe_trace`` records a ``torch.profiler`` trace of the block (host and,
-when a card is present, its kernels) as a Chrome trace under
-``$TXR_TRACE_DIR/<name>/trace.json`` when ``TXR_TRACE_DIR`` is set, and
-does nothing otherwise. ``FPSCounter`` is the reference's frames-per-second
-counter with its every-N logging contract.
+when a card is present, its kernels, with the ``txr.*`` spans) as a Chrome
+trace under ``$TXR_TRACE_DIR/<name>/trace.json`` when ``TXR_TRACE_DIR`` is
+set, and does nothing otherwise.
 """
 
 from __future__ import annotations
@@ -13,9 +30,73 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import time
+from typing import Dict, Union
+
+import torch
+import torch.autograd.profiler as _profiler
 
 logger = logging.getLogger(__name__)
+
+PREFIX = "txr."
+_OFF = contextlib.nullcontext()
+_Range = torch._C._profiler._RecordFunctionFast
+
+_host_counts: Dict[str, int] = {}
+_device_counts: Dict[str, torch.Tensor] = {}
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def recording() -> bool:
+    """Whether counters are kept: a ``torch.profiler`` records in this
+    process and no CUDA stream is capturing."""
+    return _profiler._is_profiler_enabled and not _capturing()
+
+
+def span(name: str):
+    """The range ``txr.<name>`` while a profiler records; a no-op else."""
+    if _profiler._is_profiler_enabled:
+        return _Range(PREFIX + name)
+    return _OFF
+
+
+def count(name: str, value: Union[int, torch.Tensor]) -> None:
+    """Add ``value`` (a host int or a 0-d tensor) to the counter ``name``
+    while a profiler records and no stream is capturing."""
+    if not recording():
+        return
+    if isinstance(value, torch.Tensor):
+        acc = _device_counts.get(name)
+        if acc is None:
+            _device_counts[name] = value.detach().to(torch.int64).clone()
+        else:
+            acc.add_(value.detach())
+    else:
+        _host_counts[name] = _host_counts.get(name, 0) + int(value)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total; tensor counters are read together, one
+    device-to-host copy for all of them."""
+    out = dict(_host_counts)
+    if _device_counts:
+        names = list(_device_counts)
+        by_device: Dict[torch.device, list] = {}
+        for n in names:
+            by_device.setdefault(_device_counts[n].device, []).append(n)
+        for group in by_device.values():
+            vals = torch.stack([_device_counts[n] for n in group]).tolist()
+            for n, v in zip(group, vals):
+                out[n] = out.get(n, 0) + int(v)
+    return out
+
+
+def reset_counters() -> None:
+    _host_counts.clear()
+    _device_counts.clear()
 
 
 @contextlib.contextmanager
@@ -27,7 +108,6 @@ def maybe_trace(name: str = "txr"):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(trace_dir, name)
@@ -40,27 +120,3 @@ def maybe_trace(name: str = "txr"):
     out = os.path.join(path, "trace.json")
     prof.export_chrome_trace(out)
     logger.info("torch.profiler trace -> %s", out)
-
-
-class FPSCounter:
-    """Wall-clock FPS with every-N logging (reference contract)."""
-
-    def __init__(self, log_every: int = 10, name: str = "pipeline"):
-        self.log_every = log_every
-        self.name = name
-        self.count = 0
-        self.start = time.time()
-
-    def tick(self) -> float:
-        self.count += 1
-        elapsed = max(time.time() - self.start, 1e-9)
-        fps = self.count / elapsed
-        if self.count % self.log_every == 0:
-            logger.info("%s: processed %d frames (%.1f fps)",
-                        self.name, self.count, fps)
-        return fps
-
-    def summary(self) -> str:
-        elapsed = max(time.time() - self.start, 1e-9)
-        return (f"{self.name}: {self.count} frames in {elapsed:.1f}s "
-                f"({self.count / elapsed:.1f} fps)")
