@@ -186,6 +186,25 @@ def test_insert_counters(inserts):
     assert profiling.counters() == {}
 
 
+def test_pos_embed_counters_over_two_profiled_forwards(model):
+    """The first forward after a parameter change resizes the embedding,
+    the second reuses it; the span opens on both."""
+    with torch.no_grad():
+        model.encoder.pos_embed.add_(0.0)    # a new version: one miss
+    x = torch.rand(FRAMES, H, W, 3, generator=torch.Generator().manual_seed(3))
+
+    def run():
+        with torch.no_grad():
+            model(x)
+            model(x)
+
+    prof, _ = profiled(run)
+    got = profiling.counters()
+    assert got["models.pos_embed_misses"] == 1
+    assert got["models.pos_embed_hits"] == 1
+    assert spans_mod.reduce(prof)["calls"]["models.encoder.pos_embed"] == 2
+
+
 def test_a_tensor_counter_sums_on_its_device_and_reads_once():
     profiled(lambda: [profiling.count("t", torch.tensor(v))
                       for v in (3, 4, True)] + [profiling.count("h", 5)])

@@ -12,6 +12,13 @@ embedding) are ``nn.Linear`` / ``nn.Conv2d``, as ``txr`` leaves them to its
 compiler, unless ``ViTConfig.quant`` selects an int8 policy for the block's
 dense layers (``_dense``).
 
+The position embedding resized to a frame's patch grid is a function of
+the parameter and the grid alone, so it is kept (``core.derived.Derived``)
+and reused while both stay the same: a new frame size, a weight load,
+``.to`` or an in-place update recomputes it. The native grid needs no
+resize, and a call through which autograd can reach ``pos_embed`` resizes
+anew (``ViTEncoder.interpolate_pos_embed``).
+
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
 is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
@@ -19,6 +26,7 @@ is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -26,12 +34,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from txr_torch.core.derived import Derived
 from txr_torch.ops.attention import (fused_attention, multi_head_attention,
                                      split_heads)
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import Int8LinearFused
 from txr_torch.ops.resize import resize_bicubic
-from txr_torch.utils.profiling import span
+from txr_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -163,6 +172,17 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x)) * self.ls2
 
 
+def _resize_pos_embed(pos: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """(1, 1 + g*g, d) position embedding -> (1, 1 + ph*pw, d): the patch
+    rows resized bicubically (align_corners=False, through
+    ``resize_bicubic`` as ``txr`` does), the cls row kept first."""
+    d = pos.shape[-1]
+    g = math.isqrt(pos.shape[1] - 1)
+    patch = resize_bicubic(pos[:, 1:].reshape(1, g, g, d), ph, pw,
+                           align_corners=False)
+    return torch.cat([pos[:, :1], patch.reshape(1, ph * pw, d)], dim=1)
+
+
 class ViTEncoder(nn.Module):
     """Returns the hidden states (cls token included, final LN applied) at
     cfg.out_layers, matching HF Dinov2Backbone(apply_layernorm=True)."""
@@ -180,21 +200,33 @@ class ViTEncoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", Block(cfg))
         self.norm = nn.LayerNorm(d, eps=1e-6)
+        # the resized embedding of the latest grid, per parameter state
+        self._pos_resized = Derived(_resize_pos_embed)
 
     def interpolate_pos_embed(self, ph: int, pw: int) -> torch.Tensor:
-        """Patch position embeddings at a (ph, pw) grid: bicubic,
-        align_corners=False, through ``resize_bicubic`` as ``txr`` does."""
+        """Position embeddings (cls row first) at a (ph, pw) patch grid.
+
+        The native grid returns the parameter. Any other grid takes
+        ``_resize_pos_embed``, kept in ``Derived`` for the latest grid and
+        the parameter's state (storage, version, dtype, device, shape,
+        stride), so a new grid, ``load_state_dict``, ``.to(...)`` or an
+        in-place update resizes again and every other call reuses it; the
+        counters ``models.pos_embed_hits`` / ``models.pos_embed_misses``
+        say which. Where autograd would reach ``pos_embed`` (grad enabled
+        and the parameter requiring it) the resize runs uncached, so the
+        gradient flows through it.
+        """
         c = self.cfg
         pos = self.pos_embed
         if (ph, pw) == (c.pos_embed_size, c.pos_embed_size):
             return pos
         with span("models.encoder.pos_embed"):
-            d = pos.shape[-1]
-            pos_patch = pos[:, 1:].reshape(1, c.pos_embed_size,
-                                           c.pos_embed_size, d)
-            pos_patch = resize_bicubic(pos_patch, ph, pw, align_corners=False)
-            return torch.cat([pos[:, :1], pos_patch.reshape(1, ph * pw, d)],
-                             dim=1)
+            if torch.is_grad_enabled() and pos.requires_grad:
+                return _resize_pos_embed(pos, ph, pw)
+            out = self._pos_resized.get(pos, ph, pw)
+            count("models.pos_embed_misses" if self._pos_resized.computed
+                  else "models.pos_embed_hits", 1)
+            return out
 
     def forward(self, pixels: torch.Tensor) -> List[torch.Tensor]:
         """pixels: (B, H, W, 3) normalized; H, W multiples of patch_size."""

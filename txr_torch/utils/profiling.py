@@ -17,7 +17,12 @@ PyTorch operation) are linked to the innermost span that launched them.
 ``name``, again only while a profiler is recording and never while a CUDA
 stream is capturing. Tensor values are summed on their device, one int64
 tensor per name, and read with one sync by ``counters()``;
-``reset_counters()`` clears them all.
+``reset_counters()`` clears them all. The main path keeps
+``models.pos_embed_hits`` / ``models.pos_embed_misses`` (host ints: each
+resized position-embedding lookup the encoder reused or recomputed,
+``models/vit.py``) and ``fusion.rows_sorted`` / ``fusion.points_valid``
+(the insert's rows sorted and the batch's mask summed on its device,
+``fusion/offset_map.py``).
 
 ``maybe_trace`` records a ``torch.profiler`` trace of the block (host and,
 when a card is present, its kernels, with the ``txr.*`` spans) as a Chrome
