@@ -8,10 +8,12 @@ enough that the window's last step inserts into a full map): the
 program's numbers (one JSON line, ``"kind": "sound"``), the depth numbers
 of the same run with each fault of ``planted_faults`` planted in its
 depth (``"kind": "fault"``: part of one frame scaled, or one output tile
-of the tail holding its neighbour's values), then the control's (``"kind": "control"``): the port's int8 route of the
-encoder (``quant="int8p"``) with the back-projection and the insert of
-the check computed by the reference at bfloat16. The lower reading of a
-number is the largest sound one over the seeds, the upper the smallest
+of the tail holding its neighbour's values), then the control's
+(``"kind": "control"``): the program's lower-precision route, the
+architecture's ``CONTROL`` (Depth Anything V2: the port's int8 route of
+the encoder, ``quant="int8p"``), with the back-projection and the insert
+of the check computed by the reference at bfloat16. The lower reading of
+a number is the largest sound one over the seeds, the upper the smallest
 control one. Each route builds its model once, so a dozen seeds cost two
 set-ups. The benchmark's own runs never run this. Needs a CUDA card.
 """
@@ -78,7 +80,8 @@ def readings(cell, seeds, seconds):
     from port_bench.lib.bench import Run
 
     runs = {"sound": Run(cell, torch.device("cuda", 0)),
-            "control": Run(cell, torch.device("cuda", 0), quant="int8p")}
+            "control": Run(cell, torch.device("cuda", 0),
+                           quant=cell.arch.CONTROL)}
     plain = check.depth_numbers
     for seed in seeds:
         for kind, run in runs.items():

@@ -36,17 +36,17 @@ class HostMark:
 
 class Run:
     """A cell on one device. ``quant`` other than "none" runs the port's
-    int8 policy (the control of the model's precision)."""
+    int8 policy (the control of the model's precision: the architecture's
+    ``CONTROL``)."""
 
     def __init__(self, cell: spec.Cell, device, quant: str = "none"):
         self.cell = cell
-        self.cfg, self.trf = cell.config, cell.traffic
+        self.cfg, self.trf, self.arch = cell.config, cell.traffic, cell.arch
         self.dev = torch.device(device)
         self.cuda = self.dev.type == "cuda"
         self.quant = quant
-        self.model_hw = spec.model_grid(self.trf["frame_hw"],
-                                        self.cfg["input_size"],
-                                        self.cfg["patch_size"])
+        self.model_hw = self.arch.model_grid(self.cfg,
+                                             self.trf["frame_hw"])
         self.B = self.trf["frames_per_step"]
         self.map_cfg = self.trf["map"]
         self.capacity = 1 << self.map_cfg["capacity_log2"]
@@ -79,10 +79,10 @@ class Run:
             parts[name] = now - t
             t = now
 
-        w = weights.make_weights(self.cfg, inputs.stream_seed(
+        w = weights.make_weights(self.arch, self.cfg, inputs.stream_seed(
             seed, inputs.WEIGHTS), dev, torch.bfloat16)
         if self.model is None:
-            self.model = program.build(self.cfg, w, dev, self.quant)
+            self.model = self.arch.build(self.cfg, w, dev, self.quant)
         else:
             self.model.load_state_dict(w, strict=True)
         del w
@@ -161,7 +161,7 @@ class Run:
                 prof = self._profiler()
                 prof.start()
                 hooks = trace.AttentionHooks(
-                    self.program.attention_modules(self.model))
+                    self.arch.attention_modules(self.model))
                 p_start = i
             marks = None
             if trace_on:
@@ -212,6 +212,11 @@ class Run:
                 self.model_hw[1],
                 "frames": frames,
                 "window_s": window_s, "steps": steps,
+                "step_flops": self.arch.step_flops(self.cfg, self.model_hw,
+                                                   self.B),
+                "attention_flops": self.arch.attention_flops(
+                    self.cfg, self.model_hw, self.B),
+                "attention_calls": self.arch.attention_calls(self.cfg),
                 "peak_flops": flops.PEAK_BF16_FLOPS,
                 "peak_bytes": flops.PEAK_BYTES}
 

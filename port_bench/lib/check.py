@@ -4,13 +4,14 @@ the plain reference (``port_bench/reference``), after the window.
 The checked steps are one drawn from the seed among the window's first
 steps and the window's last. For each, the reference
 
-- runs the float32 model on the step's frames and weights (both remade
-  from the seed), and the same plain model at bfloat16, the precision the
-  configuration states; the program's depth is judged, frame by frame, by
-  how much larger its error relative to the float32 depth is than the
-  bfloat16 reference's (``depth_numbers``: 0 is as good as plain bfloat16
-  arithmetic), at the median pixel and at the 99th percentile, so that a
-  fault confined to a hundredth of a frame shows.
+- runs the architecture's float32 reference (``reference``) on the step's
+  frames and weights (both remade from the seed), and the same plain
+  model at bfloat16, the precision the configuration states; the
+  program's depth is judged, frame by frame, by how much larger its error
+  relative to the float32 depth is than the bfloat16 reference's
+  (``depth_numbers``: 0 is as good as plain bfloat16 arithmetic), at the
+  median pixel and at the 99th percentile, so that a fault confined to a
+  hundredth of a frame shows.
   The raw error moves threefold from seed to seed with where the seeded
   head puts sigmoid's input (bfloat16 spacing grows with its magnitude);
   the ratio moves by a few percent;
@@ -26,8 +27,9 @@ the same call on other points.
 
 In the control (``control=True``) the back-projection and the insert of the
 check are the reference's own at bfloat16 in the program's place, and the
-model is the program's int8 route (the caller builds it): the run that has
-to come out as not correct.
+model is the program's lower-precision route, the architecture's
+``CONTROL`` (the caller builds it): the run that has to come out as not
+correct.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Dict
 import torch
 
 from port_bench.lib import inputs, weights
-from port_bench.reference import geometry, model as ref_model, voxel_map
+from port_bench.reference import geometry, voxel_map
 
 
 @dataclass
@@ -78,9 +80,9 @@ def depth_numbers(depth: torch.Tensor, d_ref: torch.Tensor,
 def judge(run, checked: Dict[str, Captured], control: bool = False
           ) -> Dict[str, float]:
     """The numbers compared, over the checked steps."""
-    cfg, dev = run.cfg, run.dev
-    w = weights.make_weights(cfg, inputs.stream_seed(run.seed,
-                                                     inputs.WEIGHTS),
+    cfg, dev, arch = run.cfg, run.dev, run.arch
+    w = weights.make_weights(arch, cfg, inputs.stream_seed(run.seed,
+                                                           inputs.WEIGHTS),
                              dev, torch.bfloat16)
     w = {k: v.to(torch.float32) for k, v in w.items()}
     cam = cfg["camera"]
@@ -100,9 +102,9 @@ def judge(run, checked: Dict[str, Captured], control: bool = False
             continue
         seen.add(cap.step)
         frames = _frames(run, cap)
-        d_ref, colour = ref_model.run(frames, w, cfg, run.model_hw)
-        d_b16, _ = ref_model.run(frames, w, cfg, run.model_hw,
-                                 torch.bfloat16)
+        d_ref, colour = arch.reference(frames, w, cfg, run.model_hw)
+        d_b16, _ = arch.reference(frames, w, cfg, run.model_hw,
+                                  torch.bfloat16)
         depth_stats.append(depth_numbers(cap.depth, d_ref, d_b16))
         del d_ref, d_b16
         R, t = inputs.PoseTable(frames.shape[0], run.trf["advance_m"],

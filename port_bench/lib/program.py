@@ -1,10 +1,12 @@
 """The system under test: the port's public calls, and nothing else of it.
 
-This is the only module of the benchmark that imports ``txr_torch``. A
-step is the repo's main path (``bench.py:105-139`` on the port):
-``ops.resize.resize_bicubic`` to the model grid and ImageNet
-normalisation, ``DepthAnything.forward`` in bfloat16,
-``ops.backproject.backproject_world`` with each frame's pose, and
+This module and the architecture files (``archs/*.py``, which build each
+architecture's model from the port's public constructors) are the only
+modules of the benchmark that import ``txr_torch``. A step is the repo's
+main path (``bench.py:105-139`` on the port): ``ops.resize.resize_bicubic``
+to the model grid (the architecture's ``model_grid``) and ImageNet
+normalisation, the forward in bfloat16 of the model the architecture
+builds, ``ops.backproject.backproject_world`` with each frame's pose, and
 ``fusion.offset_map.offset_map_insert``.
 """
 
@@ -17,36 +19,8 @@ import torch
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.offset_map import (create_offset_map,
                                          offset_map_insert)
-from txr_torch.models.depth_anything import DepthAnything
-from txr_torch.models.dpt import DPTConfig
-from txr_torch.models.vit import ViTConfig
 from txr_torch.ops.backproject import backproject_world
 from txr_torch.ops.resize import IMAGENET_MEAN, IMAGENET_STD, resize_bicubic
-
-
-def build(cfg: dict, weights: dict, device, quant: str = "none"
-          ) -> DepthAnything:
-    """The configuration's model on ``device`` holding ``weights`` in
-    bfloat16 (``quant``: the port's int8 policy of the encoder's dense
-    layers, for the control)."""
-    vit = ViTConfig(hidden_size=cfg["hidden_size"],
-                    num_layers=cfg["num_hidden_layers"],
-                    num_heads=cfg["num_attention_heads"],
-                    patch_size=cfg["patch_size"],
-                    mlp_ratio=float(cfg["mlp_ratio"]),
-                    layerscale_init=1.0,
-                    pos_embed_size=cfg["pos_embed_grid"],
-                    out_layers=tuple(cfg["out_indices"]), quant=quant)
-    dpt = DPTConfig(features=cfg["features"],
-                    out_channels=tuple(cfg["out_channels"]),
-                    head_hidden=cfg["head_hidden"], metric=True,
-                    max_depth=float(cfg["max_depth"]))
-    with torch.device("meta"):
-        model = DepthAnything(vit, dpt)
-    model = model.to_empty(device=device).to(
-        dtype=torch.bfloat16, memory_format=torch.channels_last)
-    model.load_state_dict(weights, strict=True)
-    return model.eval()
 
 
 class Step:
@@ -55,7 +29,7 @@ class Step:
     the forward, after the back-projection and after the insert; ``scope``
     names a host range around each stage."""
 
-    def __init__(self, model: DepthAnything, cfg: dict, traffic: dict,
+    def __init__(self, model: torch.nn.Module, cfg: dict, traffic: dict,
                  model_hw, device):
         self.model = model
         self.hw = model_hw
@@ -102,13 +76,3 @@ def insert(vm, xyz, rgb, mask):
 
 def map_columns(vm) -> tuple:
     return tuple(vm[:4])
-
-
-def attention_modules(model: DepthAnything) -> list:
-    """(qkv, proj) of each encoder block: attention proper runs between
-    the end of the first and the start of the second."""
-    enc = model.encoder
-    return [(getattr(enc, f"block_{i}").attn.qkv,
-             getattr(enc, f"block_{i}").attn.proj)
-            for i in range(enc.cfg.num_layers)]
-

@@ -15,6 +15,7 @@ import json
 import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -34,6 +35,7 @@ class Cell:
     name: str
     entry: dict              # the workload entry
     config: dict             # configs/<config>.json
+    arch: ModuleType         # archs/<config["architecture"]>.py
     traffic: dict            # traffic/<traffic>.json
     limits: dict             # limits/<cell>.json
     end_to_end: List[dict]   # end-to-end metrics the cell reports
@@ -65,7 +67,57 @@ def load_cell(name: str, bench: dict = None, bench_dir: Path = BENCH_DIR
     e2e_names = [m["name"] for m in e2e]
     per_layer = [m for m in bench["per_layer"]
                  if reports(m, name, e2e_names)]
-    return Cell(name, entry, config, traffic, limits, e2e, per_layer)
+    return Cell(name, entry, config, architecture(config, bench_dir),
+                traffic, limits, e2e, per_layer)
+
+
+def _load(path: Path, prefix: str, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        prefix + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def architecture(cfg: dict, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    """The module ``archs/<cfg["architecture"]>.py``: everything the
+    harness knows of one model architecture. It gives
+
+    - ``leaves(cfg)``, (name, shape, mean, std) of every parameter in the
+      order ``weights.make_weights`` draws them, and ``CENTRED``, the names
+      whose drawn values have their mean taken out; the names are the
+      state-dict names of the model ``build`` returns;
+    - ``model_grid(cfg, frame_hw)``, the (h, w) the model runs a frame of
+      ``frame_hw`` at (the program's step resizes the frames to it);
+    - ``build(cfg, weights, device, quant)``, the program's model in
+      bfloat16 holding ``weights`` (``quant``: the program's int8 policy),
+      whose call maps a normalised (B, h, w, 3) bfloat16 batch, one step's
+      frames, to depth (B, h, w); and ``attention_modules(model)``, a
+      (start, end) module pair for each attention call of a step:
+      attention runs between the end of the first and the start of the
+      second;
+    - ``reference(frames_u8, w, cfg, model_hw, dtype)``, the plain
+      reference of a whole step (module under ``reference/``, importing
+      nothing of the program): (depth (B, h, w) float32, colour image
+      (B, h, w, 3));
+    - ``step_flops(cfg, model_hw, frames)``, the model's operations for a
+      step of ``frames`` frames; ``attention_flops(cfg, model_hw, frames)``,
+      those of all the step's attention calls; ``attention_calls(cfg)``,
+      how many attention calls a step makes;
+    - ``check_config(cfg)``, raising on a configuration it cannot run;
+    - ``CONTROL``, the ``quant`` of the program's lower-precision route
+      that ``calibrate.py`` runs as the control.
+    """
+    if "architecture" not in cfg:
+        raise KeyError(f"configuration {cfg.get('name')!r} names no "
+                       f"architecture; it needs an \"architecture\" key "
+                       f"naming a file under {bench_dir / 'archs'}")
+    path = bench_dir / "archs" / f"{cfg['architecture']}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {cfg.get('name')!r} names "
+                                f"architecture {cfg['architecture']!r}; "
+                                f"no file {path}")
+    return _load(path, "port_bench_arch_", cfg["architecture"])
 
 
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
@@ -76,27 +128,7 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     path = bench_dir / "metrics" / f"{name}.py"
     if not path.exists() and "." in name:
         path = bench_dir / "metrics" / f"{name.rsplit('.', 1)[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        "port_bench_metric_" + re.sub(r"\W", "_", name), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
-
-
-def model_grid(frame_hw, target: int, multiple: int) -> tuple:
-    """Depth Anything's lower-bound resize: the short side scales to
-    ``target`` and both sides round to the nearest multiple of
-    ``multiple`` (upward where that falls under ``target``)."""
-    h, w = frame_hw
-    s = max(target / h, target / w)
-
-    def fit(v):
-        out = int(round(v / multiple) * multiple)
-        if out < target:
-            out = int(-(-v // multiple) * multiple)
-        return max(out, multiple)
-
-    return fit(s * h), fit(s * w)
+    return _load(path, "port_bench_metric_", name).read
 
 
 def check_names(bench: dict) -> List[str]:

@@ -3,9 +3,11 @@
 Spans are ``torch.profiler`` ranges that the harness opens around its calls
 into the program (``port_bench.<name>``), and CUDA events at the stage
 boundaries of each step. The attention range is opened by a forward hook
-at the end of each block's qkv product and closed by a pre-hook at the
-start of its output projection, so it holds attention proper whatever
-kernel computes it.
+at the end of each attention call's opening module and closed by a
+pre-hook at the start of its closing one (the architecture's
+``attention_modules``: a block's qkv product and its output projection,
+in Depth Anything V2), so it holds attention proper whatever kernel
+computes it.
 
 ``reduce`` turns the profiler's events into what the metric readers read:
 the traced window, the union of device activity (busy seconds), the device
@@ -40,15 +42,15 @@ class Scopes:
 
 
 class AttentionHooks:
-    """Opens ``port_bench.attention`` after each qkv product and closes it
-    before the projection that follows."""
+    """Opens ``port_bench.attention`` after each pair's first module and
+    closes it before the pair's second."""
 
     def __init__(self, pairs: list):
         self.open: List[record_function] = []
         self.handles = []
-        for qkv, proj in pairs:
-            self.handles.append(qkv.register_forward_hook(self._start))
-            self.handles.append(proj.register_forward_pre_hook(self._stop))
+        for start, end in pairs:
+            self.handles.append(start.register_forward_hook(self._start))
+            self.handles.append(end.register_forward_pre_hook(self._stop))
 
     def _start(self, module, args, output):
         rf = record_function(PREFIX + "attention")

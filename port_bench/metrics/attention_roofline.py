@@ -1,9 +1,13 @@
 """Attention's share of its roofline, in %: the operations of attention
-proper at the cell's shapes, 4 B H S^2 D a layer (q k^T and the weighted
-sum of values; bound by operations: bytes read and written are a few MB
-against hundreds of GFLOP), over 989 TFLOP/s, divided by the device time
-of the kernels launched between the end of each block's qkv product and
-the start of its projection (the ``attention`` range of the trace)."""
+proper for each step the trace holds (the architecture's
+``attention_flops``, over all of a step's attention calls, counted from
+the cell's shapes; bound by operations: the bytes read and written are a
+few MB against hundreds of GFLOP), over 989 TFLOP/s, divided by the device
+time of the kernels launched between the end of each call's opening
+module and the start of its closing one (the ``attention`` range of the
+trace; the architecture's ``attention_modules``). The steps are the
+range's calls over the architecture's ``attention_calls`` a step."""
+
 
 def read(rec):
     tr = rec.get("trace") or {}
@@ -11,7 +15,5 @@ def read(rec):
     calls = tr.get("range_calls", {}).get("attention")
     if not secs or not calls:
         return None
-    cfg, (h, w) = rec["config"], rec["model_hw"]
-    s = 1 + (h // cfg["patch_size"]) * (w // cfg["patch_size"])
-    ops = 4.0 * rec["frames_per_step"] * s * s * cfg["hidden_size"]
-    return 100.0 * calls * ops / rec["peak_flops"] / secs
+    steps = calls / rec["attention_calls"]
+    return 100.0 * steps * rec["attention_flops"] / rec["peak_flops"] / secs

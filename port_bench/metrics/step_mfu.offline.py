@@ -1,13 +1,11 @@
 """The whole step's share of the card's bf16 peak, in %: the model's
-operations a frame (ViT and DPT head, counted from the configuration's
-shapes) times the frames the traced window completed, over the window's
-seconds and 989 TFLOP/s."""
-
-from port_bench.lib.flops import model_flops
+operations a step (the architecture's ``step_flops``, counted from the
+configuration's shapes) times the steps the traced window completed, over
+the window's seconds and 989 TFLOP/s."""
 
 
 def read(rec):
     if not rec["frames"] or rec["window_s"] <= 0:
         return None
-    ops = model_flops(rec["config"], rec["model_hw"]) * rec["frames"]
+    ops = rec["step_flops"] * (rec["frames"] / rec["frames_per_step"])
     return 100.0 * ops / rec["window_s"] / rec["peak_flops"]

@@ -17,8 +17,10 @@ github.com/DepthAnything/Depth-Anything-V2, ``depth_anything_v2/dpt.py``,
   conv 3 x 3, upsample to the input grid, conv 3 x 3, ReLU, conv 1 x 1,
   sigmoid * max_depth.
 
-No kernel, no cache, no batching beyond the frames given; callers pass one
-frame at a time to bound memory. ``run`` turns off TF32 for its call.
+No kernel, no cache, no batching beyond the frames given: ``reference``,
+the architecture's reference of a step (``archs/depth_anything_v2.py``),
+takes the step's frames one at a time, since a frame's depth depends on
+that frame alone, and turns off TF32 for its call.
 """
 
 from __future__ import annotations
@@ -163,8 +165,9 @@ def depth(x: torch.Tensor, w: Dict[str, torch.Tensor], cfg: dict
 
 
 @torch.no_grad()
-def run(frames_u8: torch.Tensor, w: Dict[str, torch.Tensor], cfg: dict,
-        model_hw, dtype: torch.dtype = torch.float32) -> tuple:
+def reference(frames_u8: torch.Tensor, w: Dict[str, torch.Tensor],
+              cfg: dict, model_hw, dtype: torch.dtype = torch.float32
+              ) -> tuple:
     """Frames (B, H, W, 3) uint8 -> (depth (B, h, w) float32, colour
     image (B, h, w, 3)), one frame at a time, with TF32 off. ``dtype``
     other than float32 computes the network in that type (a control)."""

@@ -16,6 +16,7 @@ from port_bench.lib import check, program
 from port_bench.lib.bench import Run
 from port_bench.tests.tiny import tiny_cell
 from txr_torch.core.types import PointSet
+from txr_torch.models.depth_anything import DepthAnything
 
 CELLS = ["vitl-offline-b8"]
 
@@ -66,7 +67,7 @@ def model_one_tile_stale(self, pixels):
 
 
 def plant(monkeypatch, name, fn):
-    holder = program.DepthAnything if name == "forward" else program
+    holder = DepthAnything if name == "forward" else program
     fn.__wrapped__ = getattr(holder, name)
     monkeypatch.setattr(holder, name, fn)
 
@@ -104,7 +105,7 @@ def test_fault_is_caught(cell_name, fault, capsys, monkeypatch):
 @pytest.mark.parametrize("cell_name", CELLS)
 def test_control_is_not_correct(cell_name, seed):
     cell = tiny_cell(cell_name)
-    run = Run(cell, "cpu", quant="int8p")
+    run = Run(cell, "cpu", quant=cell.arch.CONTROL)
     run.prepare(seed)
     res = run.window(0.3, False)
     numbers = check.judge(run, res["checked"], control=True)

@@ -39,15 +39,32 @@ def loaded(code: str) -> set:
 
 def test_harness_loads_no_jax():
     tops = loaded("import port_bench.run, port_bench.lib.bench, "
-                  "port_bench.lib.program, port_bench.lib.check")
+                  "port_bench.lib.program, port_bench.lib.check\n"
+                  "from port_bench.lib import spec\n"
+                  "for w in spec.load_json(spec.ROOT / 'BENCHMARK.json')"
+                  "['workloads']:\n"
+                  "    spec.load_cell(w['name'])")
     assert "txr_torch" in tops
     assert not tops & set(run_mod.FORBIDDEN)
 
 
 def test_reference_loads_nothing_of_the_program():
-    tops = loaded("import port_bench.reference.model, "
-                  "port_bench.reference.geometry, "
+    tops = loaded("import port_bench.reference.geometry, "
                   "port_bench.reference.voxel_map")
+    assert not tops & (set(run_mod.FORBIDDEN) | {"txr_torch"})
+
+
+ARCHS = sorted(p.stem for p in (spec.BENCH_DIR / "archs").glob("*.py"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_each_architecture_reference_loads_nothing_of_the_program(arch):
+    """The module that holds the architecture's ``reference``, imported
+    alone, loads no ``txr_torch`` (the architecture file itself builds
+    the program's model, so it does)."""
+    module = spec.architecture({"architecture": arch}).reference.__module__
+    assert module.startswith("port_bench.reference."), module
+    tops = loaded(f"import {module}")
     assert not tops & (set(run_mod.FORBIDDEN) | {"txr_torch"})
 
 

@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from port_bench.lib import inputs, spec, weights
-from port_bench.reference import geometry, model as ref_model, voxel_map
+from port_bench.reference import depth_anything_v2 as ref
+from port_bench.reference import geometry, voxel_map
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.offset_map import create_offset_map, offset_map_insert
 from txr_torch.models.depth_anything import DepthAnything
@@ -15,6 +16,7 @@ from txr_torch.models.vit import ViTConfig
 from txr_torch.ops.backproject import backproject_world
 
 VITL = spec.load_json(spec.BENCH_DIR / "configs" / "da2-vitl-metric.json")
+DA2 = spec.architecture(VITL)
 SMALL = dict(VITL, hidden_size=64, num_hidden_layers=3,
              num_attention_heads=2, out_indices=[0, 1, 1, 2], features=16,
              out_channels=[8, 16, 32, 32])
@@ -34,10 +36,10 @@ def port_model(cfg, w):
 
 @pytest.mark.parametrize("seed", [1, 2])
 def test_depth_matches_the_port_in_float32(seed):
-    w = weights.make_weights(SMALL, seed, "cpu", torch.float32)
+    w = weights.make_weights(DA2, SMALL, seed, "cpu", torch.float32)
     frames = inputs.make_frames(2, (84, 140), seed, "cpu")
-    hw = spec.model_grid((84, 140), 42, 14)
-    want, colour = ref_model.run(frames, w, SMALL, hw)
+    hw = DA2.model_grid(dict(SMALL, input_size=42), (84, 140))
+    want, colour = ref.reference(frames, w, SMALL, hw)
     x = frames.to(torch.float32) / 255.0
     from txr_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                       resize_bicubic)
