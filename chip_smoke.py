@@ -65,6 +65,14 @@ its plain version on the operands the model handed it in the staged step
 sites, a block's four dense layers), and the depth against the same
 weights on the plain route. ``compare`` reports each kernel check's signed
 error and holds the attention and tail kernels to a bias bound (``BIAS``).
+``da3_path`` drives Depth Anything 3 any-view (``v3`` / ``large-anyview``,
+seeded weights drawn on the card) at 16 views of 1080p a step: 24
+attention, 2 tail and 1 reduce launches a step, then on the staged step's
+own activations the attention kernel at a cross-view layer (one sequence
+of 39,088 tokens after QK-norm and RoPE) against a float32 plain
+attention taken in blocks of query rows, and the tail kernel of both
+branches (2 and 7 output channels) against its plain version in float32,
+and no further from it than ``DPTHead``'s unfused bf16 tail.
 
 ``sfm_path`` runs the fusion CLI's sparse path, which holds no kernel of
 the port (plain PyTorch on the card), at the CLI's operating point:
@@ -473,14 +481,18 @@ def compare(name: str, case: str, got: torch.Tensor, want: torch.Tensor,
 # two small shifts of the mean that check_activations reports apart, the
 # bf16 rounding of the upsampled image through conv2's ReLU and sums on
 # the tensor cores that keep about 4e-6 less of conv2's sums than f32
-# arithmetic does). A result rounded toward zero instead of to nearest
-# would sit near 2^-9 of the value, hundreds of standard errors out
+# arithmetic does; Depth Anything 3's 16 views, da3_path: the attention
+# kernel over 39,088 keys z 43 and -37 at |mean| <= 6.7e-6 of the rms, its
+# 40 M outputs resolving a shift that small, the tails 17 and 8 at <= 7.9e-6).
+# A result rounded toward zero instead of to nearest would sit near 2^-9 of
+# the value, hundreds of standard errors out
 BIAS = dict(bias_z=8.0, bias_rel=2.0 ** -13,
             bias_why="more than 8 standard errors from 0 and above 2^-13 of "
-                     "the values' rms: readings |z| <= 10.4 with |mean| <= "
-                     "6.5e-6 of the rms (the tail at 32 frames: bf16 "
-                     "rounding through a ReLU, tensor-core sums); a result "
-                     "rounded toward zero would read about 2^-9")
+                     "the values' rms: readings |z| up to 43 with |mean| <= "
+                     "7.9e-6 of the rms (the tail at 32 frames: bf16 "
+                     "rounding through a ReLU, tensor-core sums; attention "
+                     "over 39,088 keys); a result rounded toward zero would "
+                     "read about 2^-9")
 ATTN_TOL = dict(atol=8e-3, rtol=1.6e-2, rms_rtol=2.0 ** -7, **BIAS,
                 why="4 bf16 ulps (2^-8 each) of the value: the kernel rounds "
                     "the probabilities to bf16 before it normalises, the "
@@ -681,13 +693,13 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
     out_h, out_w = compute_da_resize(H, W, 518)
     sms = kernels.sm_count(0)
 
-    def operands(b, hi, wi, ch):
+    def operands(b, hi, wi, ch, nout=1):
         x = torch.randn((b, hi, wi, ch), generator=gen, device="cuda")
         w2 = torch.randn((3, 3, ch, feat), generator=gen, device="cuda")
         w2 = w2 * 0.05 * (128 / ch) ** 0.5       # conv2's output of rms 4
         b2 = torch.randn((feat,), generator=gen, device="cuda") * 0.5
-        w3 = torch.randn((feat,), generator=gen, device="cuda")
-        b3 = torch.randn((1,), generator=gen, device="cuda")
+        w3 = torch.randn((1, 1, feat, nout), generator=gen, device="cuda")
+        b3 = torch.randn((nout,), generator=gen, device="cuda")
         return [t.to(torch.bfloat16) for t in (x, w2, b2, w3, b3)]
 
     def exact(args, hs, ws):
@@ -705,6 +717,16 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
     del want, got
     require_repeatable("dpt_tail",
                        lambda: fused_head_tail(*args, out_h, out_w))
+    # several outputs: Depth Anything 3's depth and ray branches
+    for nout in (2, 7):
+        many = operands(2, 20, 24, 128, nout)
+        got = fused_head_tail(*many, 35, 42)
+        compare("dpt_tail", f"N={nout} outputs: 20x24x128->35x42", got,
+                exact(many, 35, 42), **TAIL_TOL)
+        if not torch.equal(got[..., 0], fused_head_tail(
+                *many[:3], many[3][..., :1], many[4][:1], 35, 42)):
+            raise AssertionError(f"dpt_tail: output 0 of {nout} differs "
+                                 f"from the same output alone")
     # every resize ratio, every head width (C = features / 2 of the four
     # presets), an image smaller than one tile, one column past a tile, and
     # fewer tiles than multiprocessors
@@ -2336,6 +2358,126 @@ def registry_path(frames: int) -> list:
         del model, built, cap, depth
         torch.cuda.empty_cache()
     return lines
+
+
+# Depth Anything 3 any-view: views a step (the benchmark cell's), the
+# cross-view layers whose qkv is checked, launches a step
+DA3_VIEWS = 16
+DA3_BLOCKS = (9, 23)
+DA3_EXPECT = {"attention": 24, "dpt_tail": 2, "offset_reduce": 1}
+
+
+def attention_reference_blocked(qkv: torch.Tensor, heads: int,
+                                head_dim: int, rows: int = 1024
+                                ) -> torch.Tensor:
+    """``attention_reference`` taken in blocks of ``rows`` query rows, each
+    against every key: at S = 39,088 the whole float32 score matrix of 16
+    heads would be 98 GB."""
+    b, s, _ = qkv.shape
+    q, k, v = split_heads(qkv, heads, head_dim)
+    out = torch.empty((b, heads, s, head_dim), dtype=qkv.dtype,
+                      device=qkv.device)
+    for i in range(0, s, rows):
+        out[:, :, i:i + rows] = attention_plain(q[:, :, i:i + rows], k, v)
+    return out.transpose(1, 2).reshape(b, s, heads * head_dim)
+
+
+class AnyviewCapture:
+    """What a Depth Anything 3 any-view forward hands its kernels, for
+    ``drive_path``'s staged step: the qkv of the cross-view blocks
+    ``blocks`` as the attention kernel reads it (the output of the block's
+    QK-norm / RoPE), and for each head branch the input and output of its
+    conv1 (the unfused tail's input and the tail kernel's, NHWC)."""
+
+    def __init__(self, blocks=DA3_BLOCKS):
+        self.blocks = tuple(blocks)
+        self.head = None
+        self.qkv = {}
+        self.tails = {}
+
+    @contextlib.contextmanager
+    def during(self, model, x: torch.Tensor):
+        self.head = model.head
+        enc = model.encoder
+        handles = [
+            getattr(enc, f"block_{i}").attn.qk_prep.register_forward_hook(
+                lambda mod, args, out, i=i: self.qkv.__setitem__(i, out))
+            for i in self.blocks]
+        for prefix in ("head_conv", "ray_conv"):
+            conv1 = getattr(model.head, prefix + "1")
+            handles.append(conv1.register_forward_hook(
+                lambda mod, args, out, prefix=prefix: self.tails.__setitem__(
+                    prefix, (args[0], out.permute(0, 2, 3, 1).contiguous()))))
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+
+
+def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
+    """The attention kernel at each captured cross-view layer (the step's
+    views as one sequence) and the tail kernel of both head branches, on the
+    staged step's own operands, each against its plain version (ATTN_TOL,
+    TAIL_TOL); each tail also no further from the float32 plain version, in
+    rms, than ``DPTHead._tail`` (the unfused bf16 route: upsample, conv2,
+    ReLU, conv3 as separate ops) on the same conv1 input."""
+    rec = []
+    head = cap.head
+    for i, qkv in sorted(cap.qkv.items()):
+        one = qkv.view(1, -1, qkv.shape[-1])
+        rec.append(compare(
+            "attention", f"da3 cross-view block {i} qkv {list(one.shape)} "
+            f"after QK-norm and RoPE", fused_attention(one, HEADS, HEAD_DIM),
+            attention_reference_blocked(one, HEADS, HEAD_DIM), **ATTN_TOL))
+        torch.cuda.empty_cache()
+    for prefix, (y, x) in sorted(cap.tails.items()):
+        conv2, conv3 = (getattr(head, f"{prefix}{i}") for i in (2, 3))
+        args = (x, conv2.weight.permute(2, 3, 1, 0), conv2.bias,
+                conv3.weight.permute(2, 3, 1, 0), conv3.bias, *out_hw,
+                head.tail_operands(prefix))
+        geo = require_tail_geometry((*x.shape, *out_hw), kernels.sm_count(0))
+        got, want = fused_head_tail(*args), tail_exact(args)
+        rec.append(compare(
+            "dpt_tail", f"da3 {prefix} {list(x.shape)}->{out_hw[0]}x"
+            f"{out_hw[1]}x{conv3.out_channels}, {geo['chunks']} chunks, "
+            f"{geo['smem_bytes']} B of shared memory", got, want,
+            **TAIL_TOL))
+        with torch.no_grad():
+            unfused = head._tail(y, prefix, *out_hw).permute(0, 2, 3, 1)
+        rms = (unfused.float() - want).pow(2).mean().sqrt().item()
+        rec[-1]["unfused_err_rms"] = rms
+        if rec[-1]["err_rms"] > rms:
+            raise AssertionError(
+                f"dpt_tail/da3 {prefix}: the kernel's error rms "
+                f"{rec[-1]['err_rms']} exceeds the unfused route's {rms}")
+        del args, got, want, unfused
+        torch.cuda.empty_cache()
+    return [{k: r.get(k) for k in ("kernel", "case", "least_margin",
+                                   "max_abs_err", "err_rms", "value_rms",
+                                   "unfused_err_rms", "mean_signed_rel",
+                                   "mean_signed_z") if k in r}
+            for r in rec]
+
+
+def da3_path() -> dict:
+    """``drive_path`` on Depth Anything 3 any-view at full width, DA3_VIEWS
+    seeded 1080p frames a step as the views of one scene, seeded weights
+    drawn on the card: DA3_EXPECT's launches a step, then ``check_anyview``
+    on the staged step."""
+    t_phase = time.perf_counter()
+    cap = AnyviewCapture()
+    built = build_model(
+        "v3", "large-anyview", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    out, depth = drive_path("da3_path", DA3_VIEWS, False, DA3_EXPECT, "v3",
+                            "large-anyview", built=built, capture=cap)
+    out.update(kernel_checks=check_anyview(cap, tuple(depth.shape[1:])),
+               crossview_tokens=DA3_VIEWS * out["tokens"],
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del built, cap, depth
+    return out
 
 
 # bench.py's batch sweep (bench.py:67-69; 24 its default)
@@ -5040,7 +5182,8 @@ def check_tail_cache(model, size: tuple, gen: torch.Generator) -> dict:
     current parameters, at the path's shape, to the kernel_check
     tolerance. ``size``: the model's input (the tail's output)."""
     head = model.head
-    key = head._tail_w2._key
+    packed_w2 = head._tail_ops["head_conv"][0]
+    key = packed_w2._key
     ph, pw = size[0] // 14, size[1] // 14
     x = torch.randn((1, 8 * ph, 8 * pw, head.head_conv2.in_channels),
                     generator=gen, device="cuda").to(torch.bfloat16)
@@ -5058,7 +5201,7 @@ def check_tail_cache(model, size: tuple, gen: torch.Generator) -> dict:
                   got, want, TAIL_TOL["atol"], TAIL_TOL["rtol"],
                   TAIL_TOL["why"], TAIL_TOL["rms_rtol"])["max_abs_err"]
     return {"case": "tail operands after optimizer steps",
-            "max_abs_err": err, "derived_anew": head._tail_w2._key != key,
+            "max_abs_err": err, "derived_anew": packed_w2._key != key,
             "ok": True}
 
 
@@ -5676,6 +5819,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rruns = registry_path(args.frames)
     emit({"phase": "registry_path", "phase_s": time.perf_counter() - t0})
+    darun = da3_path()
+    torch.cuda.empty_cache()
     bf16_vs_f32(args.frames, crun["int8"]["depth_vs_bf16"])
     srun = sfm_path()
     torch.cuda.empty_cache()
@@ -5698,7 +5843,7 @@ def main() -> int:
             "odd_heads_path": orun, "depth_cli_path": crun,
             "v3_metric_cli_path": vrun,
             **{f"registry_path {r['label']}": r for r in rruns},
-            "sfm_path": srun, "fusion_cli_path": frun,
+            "da3_path": darun, "sfm_path": srun, "fusion_cli_path": frun,
             "enhanced_cli_path": erun, "stream_path": strun,
             "stream_fused_path": sfrun, "train_path": trun}
     # the path whose count stands in the kernels line: the first that runs it

@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from txr.ops import dpt_tail as jt
 from txr_torch.ops import dpt_tail as pt
@@ -112,6 +113,57 @@ class TestTailParity:
         with pytest.raises(ValueError):
             pt.fused_head_tail(x, torch.zeros((3, 3, 8, 8)), z, z, z[:1],
                                0, 8)
+
+
+class TestSeveralOutputs:
+    """Depth Anything 3's branches end in conv3s of 2 and 7 outputs: w3 as
+    the (1, 1, F, N) conv kernel, b3 (N,), the result (B, H, W, N)."""
+
+    @pytest.mark.parametrize("nout", [2, 7])
+    def test_each_output_is_the_one_output_tail(self, nout):
+        """Output o of N is the tail computed with w3[..., o] and b3[o]
+        alone, and the NCHW convs' conv3 channel o, to f32 rounding (the
+        1x1 conv sums F products in another order at another N)."""
+        x, w2, b2, _, _ = (torch.from_numpy(a) for a in
+                           make_case(2, 6, 7, 16, 8, seed=nout))
+        g = torch.Generator().manual_seed(nout)
+        w3 = torch.randn((1, 1, 8, nout), generator=g)
+        b3 = torch.randn((nout,), generator=g)
+        got = pt.fused_head_tail(x, w2, b2, w3, b3, 9, 11)
+        assert got.shape == (2, 9, 11, nout)
+        assert torch.equal(got, pt.head_tail_reference(x, w2, b2, w3, b3,
+                                                       9, 11))
+        for o in range(nout):
+            one = pt.fused_head_tail(x, w2, b2, w3[..., o:o + 1],
+                                     b3[o:o + 1], 9, 11)
+            assert one.shape == (2, 9, 11)
+            torch.testing.assert_close(got[..., o], one, rtol=1e-6,
+                                       atol=1e-6)
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(9, 11),
+                          mode="bilinear", align_corners=True)
+        y = F.relu(F.conv2d(y, w2.permute(3, 2, 0, 1), b2, padding=1))
+        want = F.conv2d(y, w3.permute(3, 2, 0, 1), b3).permute(0, 2, 3, 1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    def test_packed_w3_is_output_major(self):
+        """The kernel reads w3 as (N, F): conv3's own OIHW weight
+        flattened."""
+        g = torch.Generator().manual_seed(3)
+        conv3 = torch.randn((7, 32, 1, 1), generator=g)      # OIHW
+        w2 = torch.zeros((3, 3, 16, 32))
+        _, _, w3f, b3f = pt.pack_params(w2, torch.zeros(32),
+                                        conv3.permute(2, 3, 1, 0),
+                                        torch.arange(7.0))
+        assert torch.equal(w3f, conv3.reshape(-1))
+        assert torch.equal(b3f, torch.arange(7.0))
+
+    def test_a_w3_of_another_size_raises(self):
+        x = torch.zeros((1, 4, 4, 8))
+        w2 = torch.zeros((3, 3, 8, 4))
+        with pytest.raises(ValueError, match="for each of b3"):
+            pt.fused_head_tail(x, w2, torch.zeros(4),
+                               torch.zeros((1, 1, 4, 2)), torch.zeros(3),
+                               8, 8)
 
 
 # ------------------------------------------------- the kernel's host side

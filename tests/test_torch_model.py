@@ -235,7 +235,13 @@ class TestRegistry:
         import txr.models.depth_anything as jda
         import txr.models.vit as jvit
 
-        assert MODEL_CONFIGS == jda.MODEL_CONFIGS
+        # Depth Anything 3 any-view is the port's own entry; txr has none
+        port_only = {("v3", "large-anyview")}
+        entries = {(v, e) for v, es in MODEL_CONFIGS.items() for e in es}
+        assert entries - {(v, e) for v, es in jda.MODEL_CONFIGS.items()
+                          for e in es} == port_only
+        assert {v: {e: c for e, c in es.items() if (v, e) not in port_only}
+                for v, es in MODEL_CONFIGS.items()} == jda.MODEL_CONFIGS
         for name, want in jvit.VIT_PRESETS.items():
             got = VIT_PRESETS[name]
             for f in ("hidden_size", "num_layers", "num_heads", "patch_size",

@@ -205,6 +205,61 @@ def test_pos_embed_counters_over_two_profiled_forwards(model):
     assert spans_mod.reduce(prof)["calls"]["models.encoder.pos_embed"] == 2
 
 
+# Depth Anything 3 any-view: layers 0 to 2 within each view, layer 3 across
+# the views; QK-norm and RoPE on layers 2 and 3; the dual head's ray branch
+ANYVIEW_SPANS = {
+    "txr.models.encoder.qk_prep": ("txr.models.encoder", 2),
+    "txr.models.encoder.crossview": ("txr.models.encoder", 1),
+    "txr.models.encoder.attention": ("txr.models.encoder", 3),
+    "txr.models.head.ray": ("txr.models.head", 1),
+}
+
+
+@pytest.fixture(scope="module")
+def anyview():
+    torch.manual_seed(1)
+    vit = ViTConfig(hidden_size=32, num_layers=4, num_heads=2,
+                    pos_embed_size=4, out_layers=(0, 1, 2, 3),
+                    anyview_start=2)
+    dpt = DPTConfig(features=8, out_channels=(8, 8, 16, 16), head_hidden=8,
+                    dual=True)
+    return DepthAnything(vit, dpt).eval()
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_anyview_spans_and_pair_counters(anyview, recording):
+    """Under a profiler an any-view forward opens the QK-norm / RoPE, the
+    cross-view and the ray-branch spans, and counts B S^2 query-key pairs
+    a call of each kind; without one it enters no range and counts
+    nothing."""
+    x = torch.rand(FRAMES, H, W, 3, generator=torch.Generator().manual_seed(5))
+    s = 1 + (H // 14) * (W // 14)
+
+    def run():
+        with torch.no_grad():
+            return anyview(x)
+
+    if not recording:
+        CountingRange.real = profiling._Range
+        CountingRange.entered = 0
+        profiling.reset_counters()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(profiling, "_Range", CountingRange)
+            run()
+        assert CountingRange.entered == 0
+        assert profiling.counters() == {}
+        return
+    prof, _ = profiled(run)
+    evs = [e for e in prof.events() if e.name.startswith("txr.")]
+    for name, (parent, calls) in ANYVIEW_SPANS.items():
+        got = [e for e in evs if e.name == name]
+        assert len(got) == calls, name
+        assert all(txr_parent(e) == parent for e in got), name
+    got = profiling.counters()
+    assert got["models.attention_pairs_local"] == 3 * FRAMES * s * s
+    assert got["models.attention_pairs_crossview"] == (FRAMES * s) ** 2
+
+
 def test_a_tensor_counter_sums_on_its_device_and_reads_once():
     profiled(lambda: [profiling.count("t", torch.tensor(v))
                       for v in (3, 4, True)] + [profiling.count("h", 5)])

@@ -269,24 +269,28 @@ def int8(gen) -> bool:
 
 
 def tail(gen) -> bool:
-    def operands(b, hi, wi, c):
+    def operands(b, hi, wi, c, nout=1):
         x = torch.randn((b, hi, wi, c), generator=gen, device="cuda")
         w2 = torch.randn((3, 3, c, 32), generator=gen, device="cuda") * 0.05
         b2 = torch.randn((32,), generator=gen, device="cuda") * 0.5
-        w3 = torch.randn((32,), generator=gen, device="cuda")
-        b3 = torch.randn((1,), generator=gen, device="cuda")
+        w3 = torch.randn((1, 1, 32, nout), generator=gen, device="cuda")
+        b3 = torch.randn((nout,), generator=gen, device="cuda")
         return [t.to(torch.bfloat16) for t in (x, w2, b2, w3, b3)]
 
     ok = True
-    for b, hi, wi, c, ho, wo in ((1, 8, 8, 64, 8, 32), (1, 20, 24, 128, 35, 42),
-                                 (1, 4, 4, 32, 5, 7), (2, 12, 20, 192, 21, 33),
-                                 (1, 176, 40, 128, 180, 45),
-                                 (1, 64, 48, 128, 40, 30),
-                                 (1, 32, 16, 128, 1, 20),
-                                 (2, 74, 132, 128, 130, 231)):
-        args = operands(b, hi, wi, c)
+    for b, hi, wi, c, ho, wo, n in ((1, 8, 8, 64, 8, 32, 1),
+                                    (1, 20, 24, 128, 35, 42, 1),
+                                    (1, 4, 4, 32, 5, 7, 1),
+                                    (2, 12, 20, 192, 21, 33, 1),
+                                    (1, 176, 40, 128, 180, 45, 1),
+                                    (1, 64, 48, 128, 40, 30, 1),
+                                    (1, 32, 16, 128, 1, 20, 1),
+                                    (2, 74, 132, 128, 130, 231, 1),
+                                    (2, 20, 24, 128, 35, 42, 2),
+                                    (1, 12, 20, 128, 21, 33, 7)):
+        args = operands(b, hi, wi, c, n)
         got = fused_head_tail(*args, ho, wo)
-        ok &= check(f"dpt_tail {(b, hi, wi, c)} -> {(ho, wo)}", got,
+        ok &= check(f"dpt_tail {(b, hi, wi, c)} -> {(ho, wo, n)}", got,
                     head_tail_reference(*(t.float() for t in args), ho, wo),
                     TAIL_TOL)
         ok &= torch.equal(got, fused_head_tail(*args, ho, wo))

@@ -1,9 +1,10 @@
-"""What the port's tracing costs on the card, on the benchmark's
-``vitl-offline-b8`` path (``port_bench``): the same closed loop of steps
-with a ``torch.profiler`` recording (the ``txr.*`` spans and counters on)
-and without, in turns (off, on, on, off).
+"""What the port's tracing costs on the card, on a benchmark cell's path
+(``port_bench``; ``vitl-offline-b8`` unless ``--workload`` names another):
+the same closed loop of steps with a ``torch.profiler`` recording (the
+``txr.*`` spans and counters on) and without, in turns (off, on, on, off).
 
-    python3 tools/trace_cost.py [--seed N] [--steps 30] [--probes 5]
+    python3 tools/trace_cost.py [--workload CELL] [--seed N] [--steps 30] \
+        [--probes 5]
 
 Prints a summary on standard error and one JSON line on standard output:
 ``probe_ms`` (host milliseconds to enqueue one step on an idle card, each
@@ -28,6 +29,7 @@ sys.path.insert(0, str(ROOT))
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", default="vitl-offline-b8")
     p.add_argument("--seed", type=int, default=2 ** 31 + 4242)
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--probes", type=int, default=5)
@@ -44,7 +46,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("trace_cost: needs a CUDA card", file=sys.stderr)
         return 3
-    run = Run(spec.load_cell("vitl-offline-b8"), torch.device("cuda", 0))
+    run = Run(spec.load_cell(args.workload), torch.device("cuda", 0))
     run.prepare(args.seed, trace_on=True)
     B, step = run.B, [0]
     # The counters' reduction kernel loads lazily on its first launch,
@@ -94,7 +96,8 @@ def main(argv=None) -> int:
 
     blocks = [block(on) for on in (False, True, True, False)]
     res = {"device": torch.cuda.get_device_name(0),
-           "torch": torch.__version__, "seed": args.seed,
+           "torch": torch.__version__, "workload": args.workload,
+           "seed": args.seed,
            "steps": args.steps, "frames_per_step": B}
     for key, on in (("off", False), ("on", True)):
         bs = [b for b in blocks if b["on"] == on]

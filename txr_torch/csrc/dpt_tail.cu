@@ -3,8 +3,9 @@
 // Replaces the TPU kernel txr/ops/dpt_tail.py:_tail_kernel: bilinear
 // align_corners=True upsample of the conv1 activation (B, Hin, Win, C), the
 // 3x3 zero-padded conv2 (C -> F) with bias and ReLU, and the 1x1 conv3
-// (F -> 1) with its bias, in one pass, so that the upsampled activation
-// (B, out_h, out_w, C) never reaches device memory.
+// (F -> N) with its bias, in one pass, so that the upsampled activation
+// (B, out_h, out_w, C) never reaches device memory.  Depth Anything's heads
+// have N = 1; Depth Anything 3's depth and ray branches 2 and 7.
 //
 // Bound on this card: operations.  conv2 costs 2*9*C*F flop per output
 // pixel while the function moves about 2*C*Hin*Win/(out_h*out_w) + 2 bytes
@@ -58,8 +59,10 @@
 //     positions cover the 7 x 34 (3 x 34).  No fragment registers and no
 //     waits between taps: a unit's 72 products per warpgroup are issued
 //     back to back.
-//   * Bias, ReLU, the F-wide dot with w3 and b3 finish in registers; a quad
-//     of lanes reduces a pixel and one lane stores it.
+//   * Bias and ReLU finish in the accumulators; then, per output, the
+//     F-wide dot with that output's row of w3 (read from global memory, so
+//     N costs no registers) and b3: a quad of lanes reduces a pixel and one
+//     lane stores it into the (B, out_h, out_w, N) output.
 // Channels past C inside the last chunk arrive as zeros in window and
 // weights alike and are computed on.  No atomics: results repeat bit for
 // bit.
@@ -135,10 +138,10 @@ struct Geometry {
 
 struct Params {
   const float* b2;
-  const float* w3;
-  const float* b3;
-  bf16* out;
-  int Hin, Win, out_h, out_w;
+  const float* w3;  // (nout, F)
+  const float* b3;  // (nout,)
+  bf16* out;        // (B, out_h, out_w, nout)
+  int Hin, Win, out_h, out_w, nout;
   int nchunks, ntx, nty, ntiles;
   int win_w, win_tx, win_bytes, nwin;
   float scale_h, scale_w;
@@ -334,15 +337,12 @@ dpt_tail_kernel(const __grid_constant__ CUtensorMap map_x,
     const int g = lane >> 2;
     const int t = lane & 3;
 
-    float bias2[8], wv[8];  // features 8j + 2t, 8j + 2t + 1 for j = 0..3
+    float bias2[8];  // features 8j + 2t, 8j + 2t + 1 for j = 0..3
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       bias2[2 * j] = p.b2[j * 8 + t * 2];
       bias2[2 * j + 1] = p.b2[j * 8 + t * 2 + 1];
-      wv[2 * j] = p.w3[j * 8 + t * 2];
-      wv[2 * j + 1] = p.w3[j * 8 + t * 2 + 1];
     }
-    const float bias3 = p.b3[0];
 
     // acc[m]: flat positions 64 * (wg * MT + m) .. + 63 of the tile's
     // TH x 34 (position f is row f / 34, column f % 34; columns 32 and 33
@@ -355,28 +355,46 @@ dpt_tail_kernel(const __grid_constant__ CUtensorMap map_x,
       decode(tile, b, ty0, tx0);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        float r[2] = {0.f, 0.f};
+        // conv2's bias and ReLU in place: the next unit's first product
+        // overwrites the accumulators
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            r[h] += fmaxf(acc[m][4 * j + 2 * h] + bias2[2 * j], 0.f) *
-                        wv[2 * j] +
-                    fmaxf(acc[m][4 * j + 2 * h + 1] + bias2[2 * j + 1], 0.f) *
-                        wv[2 * j + 1];
-        }
+          for (int e = 0; e < 4; ++e)
+            acc[m][4 * j + e] =
+                fmaxf(acc[m][4 * j + e] + bias2[2 * j + (e & 1)], 0.f);
+        for (int o = 0; o < p.nout; ++o) {
+          const float* w3 = p.w3 + o * F;
+          float wv[8];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          r[h] += __shfl_xor_sync(0xffffffffu, r[h], 1);
-          r[h] += __shfl_xor_sync(0xffffffffu, r[h], 2);
-          const int f = 64 * (wg * MT + m) + 16 * warp + g + 8 * h;
-          const int row = f / PW;
-          const int col = f - row * PW;
-          const int oy = ty0 + row;
-          const int ox = tx0 + col;
-          if (t == 0 && row < TH && col < TW && oy < p.out_h && ox < p.out_w)
-            p.out[(static_cast<int64_t>(b) * p.out_h + oy) * p.out_w + ox] =
-                __float2bfloat16_rn(r[h] + bias3);
+          for (int j = 0; j < 4; ++j) {
+            wv[2 * j] = w3[j * 8 + t * 2];
+            wv[2 * j + 1] = w3[j * 8 + t * 2 + 1];
+          }
+          float r[2] = {0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              r[h] += acc[m][4 * j + 2 * h] * wv[2 * j] +
+                      acc[m][4 * j + 2 * h + 1] * wv[2 * j + 1];
+          }
+          const float bias3 = p.b3[o];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            r[h] += __shfl_xor_sync(0xffffffffu, r[h], 1);
+            r[h] += __shfl_xor_sync(0xffffffffu, r[h], 2);
+            const int f = 64 * (wg * MT + m) + 16 * warp + g + 8 * h;
+            const int row = f / PW;
+            const int col = f - row * PW;
+            const int oy = ty0 + row;
+            const int ox = tx0 + col;
+            if (t == 0 && row < TH && col < TW && oy < p.out_h &&
+                ox < p.out_w)
+              p.out[((static_cast<int64_t>(b) * p.out_h + oy) * p.out_w + ox) *
+                        p.nout +
+                    o] = __float2bfloat16_rn(r[h] + bias3);
+          }
         }
       }
     };
@@ -508,17 +526,18 @@ extern "C" int txr_dpt_tail_geometry(int B, int Hin, int Win, int C, int out_h,
 }
 
 // x: (B, Hin, Win, C) bf16 NHWC contiguous, C a multiple of 16;
-// w2p: (9, 32, C) bf16 (tap = 3*di + dj, feature, channel); b2, w3: (32,)
-// f32; b3: (1,) f32; out: (B, out_h, out_w) bf16.  All pointers 16-byte
-// aligned; sms: the device's multiprocessor count (the persistent grid's
-// size at most).  Returns the launch's cudaError_t (0 on success);
-// cudaErrorInvalidValue when no tile fits the shared memory of a block.
+// w2p: (9, 32, C) bf16 (tap = 3*di + dj, feature, channel); b2: (32,) f32;
+// w3: (nout, 32) f32; b3: (nout,) f32; out: (B, out_h, out_w, nout) bf16.
+// All pointers 16-byte aligned; sms: the device's multiprocessor count (the
+// persistent grid's size at most).  Returns the launch's cudaError_t (0 on
+// success); cudaErrorInvalidValue when no tile fits the shared memory of a
+// block or nout < 1.
 extern "C" int txr_dpt_tail_fwd(const void* x, const void* w2p, const void* b2,
                                 const void* w3, const void* b3, void* out,
                                 int B, int Hin, int Win, int C, int out_h,
-                                int out_w, int sms, void* stream) {
+                                int out_w, int nout, int sms, void* stream) {
   Geometry g;
-  if (!choose_geometry(B, Hin, Win, C, out_h, out_w, sms, &g))
+  if (nout < 1 || !choose_geometry(B, Hin, Win, C, out_h, out_w, sms, &g))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx, mw;
   {
@@ -551,6 +570,7 @@ extern "C" int txr_dpt_tail_fwd(const void* x, const void* w2p, const void* b2,
   p.Win = Win;
   p.out_h = out_h;
   p.out_w = out_w;
+  p.nout = nout;
   p.nchunks = g.nchunks;
   p.ntx = g.ntx;
   p.nty = g.nty;

@@ -2,7 +2,11 @@
 counterpart of ``txr/models/depth_anything.py``.
 
 - the same version/encoder registry MODEL_CONFIGS (v1 {vits,vitb,vitl},
-  v2 {+vitg}, v3 {large}) with features/out_channels per entry,
+  v2 {+vitg}, v3 {large}) with features/out_channels per entry, and
+  ``v3/large-anyview``, Depth Anything 3's any-view DA3-LARGE (not in
+  ``txr``; ``v3/large`` is ``txr``'s DA2-style stand-in): a batch is the
+  views of one scene, which attend to each other, and the dual head's
+  confidence and rays are kept on the model (``DepthAnything.outputs``),
 - relative heads (ReLU disparity) and metric heads (sigmoid * max_depth),
 - infer() with the DA lower-bound multiple-of-14 resize, bilinear
   (align_corners=True) upsample back to source resolution, and the V3
@@ -60,6 +64,7 @@ MODEL_CONFIGS: Dict[str, Dict[str, Dict[str, Any]]] = {
     },
     "v3": {
         "large": {"encoder": "vitl", "features": 256, "out_channels": [256, 512, 1024, 1024]},
+        "large-anyview": {"encoder": "vitl-anyview", "features": 256, "out_channels": [256, 512, 1024, 1024], "dual": True},
     },
 }
 
@@ -88,21 +93,28 @@ def hf_model_name(version: str, encoder: str, metric: bool = False,
 
 class DepthAnything(nn.Module):
     """ViT encoder + DPT head operating on preprocessed (B, H, W, 3) input
-    (``txr``'s DepthAnythingFlax)."""
+    (``txr``'s DepthAnythingFlax). The call returns depth (B, H, W); a dual
+    head's (``DPTConfig.dual``) every output of the latest call is in
+    ``outputs`` (depth, confidence, rays, ray_confidence)."""
 
     def __init__(self, vit: ViTConfig, dpt: DPTConfig):
         super().__init__()
         self.vit = vit
         self.dpt = dpt
         self.encoder = ViTEncoder(vit)
-        self.head = DPTHead(dpt, vit.hidden_size)
+        self.head = DPTHead(dpt, vit.hidden_size * (2 if vit.anyview else 1))
+        self.outputs: Dict[str, torch.Tensor] = {}
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         ph = pixels.shape[1] // self.vit.patch_size
         pw = pixels.shape[2] // self.vit.patch_size
         with span("models.forward"):
             hidden = self.encoder(pixels)
-            return self.head(hidden, ph, pw, self.vit.patch_size)
+            out = self.head(hidden, ph, pw, self.vit.patch_size)
+            if self.dpt.dual:
+                self.outputs = out
+                return out["depth"]
+            return out
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -171,6 +183,7 @@ def build_model(version: str = "v2", encoder: str = "vitl",
         max_depth=max_depth,
         fused_head=knob.get(os.environ.get("TXR_FUSED_HEAD", "")),
         fused_convs=knob.get(os.environ.get("TXR_FUSED_CONVS", "")),
+        dual=cfg.get("dual", False),
     )
     # built on its device: the modules' own initialisation, which
     # init_weights overwrites, is then no host-side pass over ViT-G's 1.1 B
@@ -268,8 +281,10 @@ class DepthAnythingModel:
         rgb = torch.from_numpy(np.ascontiguousarray(images[..., ::-1]))
         depth = self._forward(rgb.to(self.device), in_h, in_w, h, w)
         depth = depth.cpu().numpy().astype(np.float32)
-        # V3 focal-length scaling.
-        if self.version == "v3" and intrinsics is not None:
+        # V3 focal-length scaling (of txr's stand-in; the any-view model's
+        # depth is relative).
+        if (self.version == "v3" and not self.dpt_cfg.dual
+                and intrinsics is not None):
             focal_pixels = (intrinsics.fx + intrinsics.fy) / 2.0
             depth = depth * np.float32(focal_pixels / self.focal_length_ref)
         return depth

@@ -11,6 +11,14 @@ the output head's conv1 go through ``txr_torch.ops.conv_stripe``. Every
 other conv is ``F.conv2d`` / ``F.conv_transpose2d`` through ``nn`` modules,
 as ``txr`` leaves them to its compiler.
 
+With ``DPTConfig.dual`` the head is Depth Anything 3's dual DPT (not in
+``txr``): the projections, resizes and scratch convs are shared; a second
+fusion stack (``ray_fusion_*``) and output tail (``ray_conv*``) give 7
+channels beside the depth branch's 2, each tail through the tail kernel
+(or not, as ``fused_head`` says). ``forward`` then returns a dict: depth
+exp(y0), its confidence 1 + exp(y1), rays (B, H, W, 6) and their
+confidence 1 + exp(y6), in float32.
+
 The public interface keeps ``txr``'s layout: hidden states (B, 1+ph*pw, D)
 in, depth (B, H, W) out. Inside, feature maps are NCHW tensors in
 ``channels_last`` memory, which is NHWC in memory, so the views between the
@@ -51,6 +59,12 @@ class DPTConfig:
     #   fused tail is on too, for the output head's conv1. None / False = off.
     fused_head: Optional[bool] = None
     fused_convs: Optional[bool] = None
+    # Depth Anything 3's dual head: a depth branch of 2 channels and a ray
+    # branch of 7 (metric is then not read)
+    dual: bool = False
+
+# channels of the dual head's two outputs
+DEPTH_CHANNELS, RAY_CHANNELS = 2, 7
 
 
 def _bilinear(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
@@ -188,26 +202,96 @@ class DPTHead(nn.Module):
         self.head_conv1 = Conv3x3(c.features, c.features // 2)
         self.head_conv2 = nn.Conv2d(c.features // 2, c.head_hidden, 3,
                                     padding=1)
-        self.head_conv3 = nn.Conv2d(c.head_hidden, 1, 1)
-        # the tail kernel's operands, derived once per parameter version
-        self._tail_w2 = Derived(_tail_w2)
-        self._tail_b2 = Derived(_f32)
-        self._tail_w3 = Derived(_f32)
-        self._tail_b3 = Derived(_f32)
+        self.head_conv3 = nn.Conv2d(c.head_hidden,
+                                    DEPTH_CHANNELS if c.dual else 1, 1)
+        if c.dual:
+            self.ray_fusion_3 = FeatureFusionBlock(
+                c.features, has_residual=False, fused=fconv)
+            self.ray_fusion_2 = FeatureFusionBlock(c.features, fused=fconv)
+            self.ray_fusion_1 = FeatureFusionBlock(c.features, fused=fconv)
+            self.ray_fusion_0 = FeatureFusionBlock(c.features, fused=fconv)
+            self.ray_conv1 = Conv3x3(c.features, c.features // 2)
+            self.ray_conv2 = nn.Conv2d(c.features // 2, c.head_hidden, 3,
+                                       padding=1)
+            self.ray_conv3 = nn.Conv2d(c.head_hidden, RAY_CHANNELS, 1)
+        # the tail kernel's operands of each branch, derived once per
+        # parameter version
+        self._tail_ops = {
+            prefix: tuple(Derived(fn) for fn in (_tail_w2, _f32, _f32, _f32))
+            for prefix in (("head_conv", "ray_conv") if c.dual
+                           else ("head_conv",))}
 
-    def tail_operands(self) -> Tuple[torch.Tensor, ...]:
-        """``ops.dpt_tail.pack_params`` of the head's conv2 / conv3, kept
-        until a parameter changes."""
-        return (self._tail_w2.get(self.head_conv2.weight),
-                self._tail_b2.get(self.head_conv2.bias),
-                self._tail_w3.get(self.head_conv3.weight),
-                self._tail_b3.get(self.head_conv3.bias))
+    def tail_operands(self, prefix: str = "head_conv"
+                      ) -> Tuple[torch.Tensor, ...]:
+        """``ops.dpt_tail.pack_params`` of a branch's conv2 / conv3
+        (``prefix`` ``"head_conv"`` or, in the dual head, ``"ray_conv"``),
+        kept until a parameter changes."""
+        conv2, conv3 = (getattr(self, f"{prefix}{i}") for i in (2, 3))
+        return tuple(d.get(t) for d, t in zip(
+            self._tail_ops[prefix],
+            (conv2.weight, conv2.bias, conv3.weight, conv3.bias)))
+
+    def _fuse(self, feats, prefix: str) -> torch.Tensor:
+        """Top-down fusion (refinenet4 -> refinenet1). Each block upsamples
+        to the next stage's spatial size (HF fusion_stage semantics)."""
+        f1, f2, f3, f4 = feats
+        y = getattr(self, prefix + "3")(f4, size=f3.shape[2:])
+        y = getattr(self, prefix + "2")(y, f3, size=f2.shape[2:])
+        y = getattr(self, prefix + "1")(y, f2, size=f1.shape[2:])
+        return getattr(self, prefix + "0")(y, f1)
+
+    def _tail(self, y, prefix: str, out_h: int, out_w: int):
+        """The unfused output tail of the branch ``prefix``: conv1,
+        upsample to the output size, conv2, ReLU, conv3; (B, channels,
+        out_h, out_w)."""
+        conv1, conv2, conv3 = (getattr(self, f"{prefix}{i}")
+                               for i in (1, 2, 3))
+        y = conv1(y)
+        y = _bilinear(y, (out_h, out_w), align_corners=True)
+        y = F.relu(conv2(y))
+        return conv3(y)
+
+    def _tail_fused(self, y, prefix: str, out_h: int, out_w: int):
+        """conv1, then the tail kernel on its NHWC output: (B, out_h,
+        out_w) for one output channel, (B, out_h, out_w, channels) for
+        more."""
+        conv1, conv2, conv3 = (getattr(self, f"{prefix}{i}")
+                               for i in (1, 2, 3))
+        # channels_last memory IS contiguous NHWC: the permute is a view and
+        # contiguous() copies only if the conv chose another format.
+        if self.cfg.fused_convs:
+            x = conv1.fused(y.permute(0, 2, 3, 1), False)
+        else:
+            x = conv1(y).permute(0, 2, 3, 1).contiguous()
+        # (3, 3, C, F) and (1, 1, F, channels)
+        return fused_head_tail(
+            x, conv2.weight.permute(2, 3, 1, 0), conv2.bias,
+            conv3.weight.permute(2, 3, 1, 0), conv3.bias, out_h, out_w,
+            self.tail_operands(prefix) if x.is_cuda else None)
+
+    def _branch(self, feats, fusion: str, prefix: str, out_h: int,
+                out_w: int):
+        """A dual head's branch: its fusion stack and tail, (B, out_h,
+        out_w, channels) in float32."""
+        y = self._fuse(feats, fusion)
+        if self.cfg.fused_head is False:
+            return self._tail(y, prefix, out_h, out_w).permute(
+                0, 2, 3, 1).float()
+        return self._tail_fused(y, prefix, out_h, out_w).float()
+
+    def _dual(self, feats, out_h: int, out_w: int) -> dict:
+        y = self._branch(feats, "fusion_", "head_conv", out_h, out_w)
+        with span("models.head.ray"):
+            r = self._branch(feats, "ray_fusion_", "ray_conv", out_h, out_w)
+        return {"depth": y[..., 0].exp(), "confidence": 1 + y[..., 1].exp(),
+                "rays": r[..., :6], "ray_confidence": 1 + r[..., 6].exp()}
 
     def forward(self, hidden_states: List[torch.Tensor], ph: int, pw: int,
-                patch_size: int = 14) -> torch.Tensor:
+                patch_size: int = 14):
         """hidden_states: 4 x (B, 1+ph*pw, D) from the encoder (cls first).
 
-        Returns depth (B, ph*patch_size, pw*patch_size).
+        Returns depth (B, ph*patch_size, pw*patch_size), or with ``dual``
+        the dict of the two branches' outputs.
         """
         with span("models.head"):
             c = self.cfg
@@ -226,35 +310,16 @@ class DPTHead(nn.Module):
                     x = self.resize_3(x)
                 feats.append(getattr(self, f"scratch_{i}")(x))
 
-            # Top-down fusion (refinenet4 -> refinenet1). Each block upsamples
-            # to the next stage's spatial size (HF fusion_stage semantics).
-            f1, f2, f3, f4 = feats
-            y = self.fusion_3(f4, size=f3.shape[2:])
-            y = self.fusion_2(y, f3, size=f2.shape[2:])
-            y = self.fusion_1(y, f2, size=f1.shape[2:])
-            y = self.fusion_0(y, f1)
+            out_h, out_w = ph * patch_size, pw * patch_size
+            if c.dual:
+                return self._dual(feats, out_h, out_w)
+            y = self._fuse(feats, "fusion_")
 
             # Output head.
-            out_h, out_w = ph * patch_size, pw * patch_size
             if c.fused_head is False:
-                y = self.head_conv1(y)
-                y = _bilinear(y, (out_h, out_w), align_corners=True)
-                y = F.relu(self.head_conv2(y))
-                y = self.head_conv3(y)[:, 0]
+                y = self._tail(y, "head_conv", out_h, out_w)[:, 0]
             else:
-                # channels_last memory IS contiguous NHWC: the permute is a
-                # view and contiguous() copies only if the conv chose another
-                # format.
-                if c.fused_convs:
-                    x = self.head_conv1.fused(y.permute(0, 2, 3, 1), False)
-                else:
-                    x = self.head_conv1(y).permute(0, 2, 3, 1).contiguous()
-                # (3, 3, C, F)
-                w2 = self.head_conv2.weight.permute(2, 3, 1, 0)
-                y = fused_head_tail(
-                    x, w2, self.head_conv2.bias,
-                    self.head_conv3.weight.reshape(-1), self.head_conv3.bias,
-                    out_h, out_w, self.tail_operands() if x.is_cuda else None)
+                y = self._tail_fused(y, "head_conv", out_h, out_w)
             if c.metric:
                 return torch.sigmoid(y) * c.max_depth
             return F.relu(y)

@@ -19,6 +19,17 @@ and reused while both stay the same: a new frame size, a weight load,
 resize, and a call through which autograd can reach ``pos_embed`` resizes
 anew (``ViTEncoder.interpolate_pos_embed``).
 
+Depth Anything 3's any-view encoder (``ViTConfig.anyview_start``; -1, off,
+by default) adds to the same blocks and the same loop, from that layer on:
+odd layers attend across every token of every view of the batch (the
+(B, S, 3D) projection viewed as (1, B*S, 3D), no copy, through the same
+kernel) and even layers within each view; q and k take a LayerNorm over
+the head dimension and a 2-D rotary embedding (``QKPrep``, plain PyTorch,
+written back into the fused layout); a learned camera token takes the cls
+slot (one for view 0, one shared by the others); each taken layer hands on
+the last within-view layer's output joined to its own (2 D channels), each
+after the final LayerNorm. None of this is in ``txr``.
+
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
 is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
@@ -27,7 +38,7 @@ is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
@@ -62,6 +73,19 @@ class ViTConfig:
     # W8A8 kernel (txr_torch.ops.quant_fused); "int8mix" the kernel for
     # fc2 / w3 and "int8" elsewhere. The parameters are the same either way.
     quant: str = "none"
+    # Depth Anything 3 any-view from this layer on (-1: off): the batch is
+    # the views of one scene; odd layers attend across every token of every
+    # view, q and k take QK-norm and 2-D RoPE, a camera token takes the cls
+    # slot and each taken layer is joined to the last within-view output.
+    anyview_start: int = -1
+
+    @property
+    def anyview(self) -> bool:
+        return self.anyview_start >= 0
+
+    def crossview(self, layer: int) -> bool:
+        """Whether ``layer`` attends across the views."""
+        return 0 <= self.anyview_start <= layer and layer % 2 == 1
 
 
 VIT_PRESETS = {
@@ -73,6 +97,13 @@ VIT_PRESETS = {
     "vitg": ViTConfig(1536, 40, 24, mlp_ratio=4.0, use_swiglu=True,
                       out_layers=(9, 19, 29, 39)),
 }
+# Depth Anything 3 any-view, DA3-LARGE (arXiv:2511.10647): ViT-L with
+# cross-view attention on the odd layers from 8, QK-norm, 2-D RoPE and the
+# camera token from 8, and layers 11, 15, 19, 23 taken joined
+VIT_PRESETS["vitl-anyview"] = replace(
+    VIT_PRESETS["vitl"], out_layers=(11, 15, 19, 23), anyview_start=8)
+# the 2-D RoPE's base frequency (Depth Anything 3, as CroCo and VGGT)
+ROPE_BASE = 100.0
 
 
 QUANT_POLICIES = ("none", "int8", "int8p", "int8mix")
@@ -121,16 +152,77 @@ class SwiGLU(nn.Module):
         return self.w3(F.silu(x1) * x2)
 
 
+def rope_tables(ph: int, pw: int, head_dim: int, base: float,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin, (1 + ph*pw, 1, head_dim) float32, of the 2-D rotary
+    embedding (the CroCo / VGGT convention): the first half of a head's
+    dimensions turns with the token's row, the second with its column, each
+    half at the frequencies ``base^(-2j / half)`` repeated over its two
+    quarters. The cls (camera) token sits at (0, 0), patch (r, c) at
+    (r + 1, c + 1)."""
+    half = head_dim // 2
+    inv = base ** -(torch.arange(0, half, 2, device=device,
+                                 dtype=torch.float32) / half)
+    rows = torch.arange(ph, device=device, dtype=torch.float32) + 1
+    cols = torch.arange(pw, device=device, dtype=torch.float32) + 1
+    zero = torch.zeros(1, device=device)
+    r = torch.cat([zero, rows.repeat_interleave(pw)])[:, None] * inv
+    c = torch.cat([zero, cols.repeat(ph)])[:, None] * inv
+    angles = torch.cat([r, r, c, c], dim=1)[:, None]
+    return angles.cos(), angles.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) turned by ``rope_tables``: x cos + rot(x) sin, with
+    rot taking each half's quarters (a, b) to (-b, a)."""
+    xr = x.unflatten(-1, (2, 2, x.shape[-1] // 4))
+    rot = torch.stack([-xr[..., 1, :], xr[..., 0, :]], dim=-2).flatten(-3)
+    return x * cos + rot * sin
+
+
+class QKPrep(nn.Module):
+    """Depth Anything 3's QK-norm (a LayerNorm over the head dimension, with
+    weight and bias, one for q and one for k) and 2-D RoPE on the fused
+    (B, S, 3*H*D) projection, in float32, written back into a new fused
+    tensor so the attention call reads it as before. A module of its own so
+    that attention proper starts where its forward ends."""
+
+    def __init__(self, head_dim: int):
+        super().__init__()
+        self.q_norm = nn.LayerNorm(head_dim, eps=1e-6)
+        self.k_norm = nn.LayerNorm(head_dim, eps=1e-6)
+
+    @staticmethod
+    def _prep(x, ln, tables):
+        x = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(),
+                         ln.bias.float(), ln.eps)
+        return apply_rope(x, *tables)
+
+    def forward(self, qkv: torch.Tensor, heads: int, tables):
+        """``tables``: ``rope_tables`` of the batch's patch grid."""
+        with span("models.encoder.qk_prep"):
+            b, s, _ = qkv.shape
+            q, k, v = qkv.view(b, s, 3, heads, -1).unbind(2)
+            q = self._prep(q, self.q_norm, tables)
+            k = self._prep(k, self.k_norm, tables)
+            return torch.stack([q.to(v.dtype), k.to(v.dtype), v],
+                               dim=2).view(b, s, -1)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, layer: int = 0):
         super().__init__()
         d = cfg.hidden_size
         self.cfg = cfg
         dense = _dense(cfg.quant)
         self.qkv = dense(d, 3 * d)   # one fused matrix product
         self.proj = dense(d, d)
+        self.crossview = cfg.crossview(layer)
+        self.qk_prep = (QKPrep(d // cfg.num_heads)
+                        if 0 <= cfg.anyview_start <= layer else None)
 
-    def forward(self, x, kv_len: Optional[int] = None):
+    def forward(self, x, kv_len: Optional[int] = None, rope=None):
         c = self.cfg
         b, s, d = x.shape
         head_dim = d // c.num_heads
@@ -138,7 +230,17 @@ class Attention(nn.Module):
         # a tensor-parallel rank holds whole heads of the fused product
         # (txr_torch.parallel.mesh), so the head count is read off its width
         heads = qkv.shape[-1] // (3 * head_dim)
-        with span("models.encoder.attention"):
+        if self.qk_prep is not None:
+            qkv = self.qk_prep(qkv, heads, rope)
+        if self.crossview:
+            # every token of every view as one sequence: a view, no copy
+            qkv = qkv.view(1, b * s, qkv.shape[-1])
+        qb, qs = qkv.shape[:2]
+        count("models.attention_pairs_crossview" if self.crossview
+              else "models.attention_pairs_local",
+              qb * qs * (qs if kv_len is None else kv_len))
+        with span("models.encoder.crossview" if self.crossview
+                  else "models.encoder.attention"):
             if c.use_flash is not False and heads % 2 == 0:
                 # the kernel reads the fused layout in place
                 o = fused_attention(qkv, heads, head_dim, kv_len)
@@ -146,18 +248,18 @@ class Attention(nn.Module):
                 q, k, v = split_heads(qkv, heads, head_dim)
                 o = multi_head_attention(q, k, v, kv_len=kv_len,
                                          use_flash=c.use_flash)
-                o = o.transpose(1, 2).reshape(b, s, heads * head_dim)
-        return self.proj(o)
+                o = o.transpose(1, 2).reshape(qb, qs, heads * head_dim)
+        return self.proj(o.view(b, s, -1) if self.crossview else o)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, layer: int = 0):
         super().__init__()
         d = cfg.hidden_size
         self.ls1 = nn.Parameter(torch.full((d,), float(cfg.layerscale_init)))
         self.ls2 = nn.Parameter(torch.full((d,), float(cfg.layerscale_init)))
         self.norm1 = nn.LayerNorm(d, eps=1e-6)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, layer)
         self.norm2 = nn.LayerNorm(d, eps=1e-6)
         mlp_hidden = int(d * cfg.mlp_ratio)
         if cfg.use_swiglu:
@@ -167,8 +269,8 @@ class Block(nn.Module):
         else:
             self.mlp = Mlp(d, mlp_hidden, d, quant=cfg.quant)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x)) * self.ls1
+    def forward(self, x, rope=None):
+        x = x + self.attn(self.norm1(x), rope=rope) * self.ls1
         return x + self.mlp(self.norm2(x)) * self.ls2
 
 
@@ -197,8 +299,11 @@ class ViTEncoder(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + cfg.pos_embed_size ** 2, d))
+        if cfg.anyview:
+            # (1, 2, d): the reference view's token, then the others'
+            self.camera_token = nn.Parameter(torch.zeros(1, 2, d))
         for i in range(cfg.num_layers):
-            self.add_module(f"block_{i}", Block(cfg))
+            self.add_module(f"block_{i}", Block(cfg, i))
         self.norm = nn.LayerNorm(d, eps=1e-6)
         # the resized embedding of the latest grid, per parameter state
         self._pos_resized = Derived(_resize_pos_embed)
@@ -246,11 +351,27 @@ class ViTEncoder(nn.Module):
                           dim=1)
             x = x + pos.to(x.dtype)
 
+            rope = (rope_tables(ph, pw, c.hidden_size // c.num_heads,
+                                ROPE_BASE, x.device) if c.anyview else None)
             collected = {}
             want = set(c.out_layers)
+            local = x
             for i in range(c.num_layers):
-                x = getattr(self, f"block_{i}")(x)
+                if i == c.anyview_start:
+                    x = torch.cat([self._camera_tokens(b, x.dtype), x[:, 1:]],
+                                  dim=1)
+                block = getattr(self, f"block_{i}")
+                x = block(x, rope)
+                if not block.attn.crossview:
+                    local = x
                 if i in want:
-                    collected[i] = self.norm(x)
+                    collected[i] = (torch.cat([self.norm(local),
+                                               self.norm(x)], dim=-1)
+                                    if c.anyview else self.norm(x))
             # One output per requested index, duplicates allowed.
             return [collected[i] for i in c.out_layers]
+
+    def _camera_tokens(self, b: int, dtype) -> torch.Tensor:
+        """(b, 1, d): view 0's camera token, then the shared one."""
+        t = self.camera_token.to(dtype)
+        return torch.cat([t[:, :1], t[:, 1:].expand(b - 1, -1, -1)], dim=0)

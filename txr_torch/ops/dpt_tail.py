@@ -5,7 +5,7 @@ The head ends with
 
     y = conv1(y)                                   # (B, Hin, Win, C)
     y = resize_bilinear(y, H, W, align_corners=True)
-    y = conv2_3x3(y); y = relu(y); y = conv3_1x1(y)   # -> (B, H, W)
+    y = conv2_3x3(y); y = relu(y); y = conv3_1x1(y)   # -> (B, H, W, N)
 
 and run as separate ops the resized activation (B, H, W, C) goes through
 device memory twice. The kernel (``csrc/dpt_tail.cu``) replaces the TPU
@@ -26,9 +26,12 @@ takes the same path (``txr``'s row window and its ``_window_covers`` guard
 are TPU-shaped and are not carried over); a downsample so strong that the
 window outgrows shared memory or a TMA box is refused by name.
 
-The kernel takes bf16, 32 conv2 features, C a multiple of 16, and the conv2
-kernel repacked as (9, 32, C); :func:`pack_params` makes that and the f32
-vectors once, and ``DPTHead`` keeps them until the parameters change.
+The kernel takes bf16, 32 conv2 features, C a multiple of 16, the conv2
+kernel repacked as (9, 32, C), and any number N of conv3 outputs (Depth
+Anything's heads have 1; Depth Anything 3's depth and ray branches 2 and
+7), which it writes as (B, H, W, N); :func:`pack_params` makes the packed
+kernel and the f32 vectors once, and ``DPTHead`` keeps them until the
+parameters change. One output channel is returned as (B, H, W).
 
 ``fused_head_tail`` takes the plain version only for a tensor that lies on
 the CPU. For a CUDA tensor it launches the kernel or raises. Its gradient
@@ -174,17 +177,20 @@ def head_tail_reference(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                         out_w: int) -> torch.Tensor:
     """Plain PyTorch version: resize -> conv2 -> relu -> conv3.
 
-    x: (B, Hin, Win, C); w2: (3, 3, C, F); b2: (F,); w3: (1, 1, F, 1) or
-    (F,); b3: (1,). Returns (B, out_h, out_w) in x's dtype.
+    x: (B, Hin, Win, C); w2: (3, 3, C, F); b2: (F,); w3: (1, 1, F, N), or
+    (F,) for N = 1; b3: (N,). Returns (B, out_h, out_w, N), or (B, out_h,
+    out_w) for N = 1, in x's dtype.
     """
     dt = x.dtype
+    n = b3.numel()
     y = resize_bilinear(x, out_h, out_w, align_corners=True)
     y = F.conv2d(y.permute(0, 3, 1, 2), w2.to(dt).permute(3, 2, 0, 1),
                  b2.to(dt), padding=1)
     y = F.relu(y)
-    f = w3.reshape(1, -1, 1, 1).to(dt)
-    out = F.conv2d(y, f)[:, 0]
-    return (out + b3.reshape(-1)[0].to(dt)).to(dt)
+    f = w3.reshape(-1, n).t().reshape(n, -1, 1, 1).to(dt)
+    out = F.conv2d(y, f) + b3.reshape(1, n, 1, 1).to(dt)
+    out = out[:, 0] if n == 1 else out.permute(0, 2, 3, 1)
+    return out.to(dt)
 
 
 def pack_conv2(w2: torch.Tensor) -> torch.Tensor:
@@ -198,10 +204,11 @@ def pack_conv2(w2: torch.Tensor) -> torch.Tensor:
 def pack_params(w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
                 b3: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The kernel's operands: :func:`pack_conv2` of w2, and b2 (F,), w3
-    (F,), b3 (1,) flat in f32."""
+    (N, F) (output-major: conv3's own OIHW order), b3 (N,) flat in f32."""
+    n = b3.numel()
     return (pack_conv2(w2),
             *(t.to(torch.float32).reshape(-1).contiguous()
-              for t in (b2, w3, b3)))
+              for t in (b2, w3.reshape(-1, n).t(), b3)))
 
 
 def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
@@ -222,10 +229,13 @@ def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
         raise ValueError(
             f"packed conv2 kernel must be (9, {feat}, {c}) bfloat16, got "
             f"{tuple(w2p.shape)} {w2p.dtype}")
-    if b2f.shape != (feat,) or w3f.shape != (feat,) or b3f.shape != (1,):
+    nout = b3f.numel()
+    if (b2f.shape != (feat,) or w3f.shape != (nout * feat,)
+            or b3f.shape != (nout,)):
         raise ValueError(
-            f"b2 and w3 must hold {feat} values and b3 one, got "
-            f"{tuple(b2f.shape)}, {tuple(w3f.shape)}, {tuple(b3f.shape)}")
+            f"b2 and w3 must hold {feat} and {nout * feat} values (b3's "
+            f"{nout} outputs), got {tuple(b2f.shape)}, {tuple(w3f.shape)}, "
+            f"{tuple(b3f.shape)}")
     dev = x.device
     for name, ten, dt in (("x", x, torch.bfloat16),
                           ("the packed conv2 kernel", w2p, torch.bfloat16),
@@ -239,15 +249,15 @@ def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
                 f"aligned, {dt} and on {dev}")
     sms = _cuda.sm_count(dev)
     kernel_geometry(b, hin, win, c, out_h, out_w, sms)   # raises by name
-    out = torch.empty((b, out_h, out_w), dtype=x.dtype, device=dev)
+    out = torch.empty((b, out_h, out_w, nout), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().txr_dpt_tail_fwd(
             x.data_ptr(), w2p.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
             b3f.data_ptr(), out.data_ptr(), b, hin, win, c, out_h, out_w,
-            sms, torch.cuda.current_stream().cuda_stream)
+            nout, sms, torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, "dpt_tail")
     _cuda.launches["dpt_tail"] += 1
-    return out
+    return out[..., 0] if nout == 1 else out
 
 
 class _FusedHeadTail(torch.autograd.Function):
@@ -282,15 +292,20 @@ def fused_head_tail(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     conv3(1x1) for the DPT output head.
 
     x: (B, Hin, Win, C) NHWC contiguous conv1 output.
-    w2: (3, 3, C, F), b2: (F,), w3: (1, 1, F, 1) or (F,), b3: (1,).
-    Returns (B, out_h, out_w) pre-activation depth in x's dtype. ``packed``
-    may carry ``pack_params(w2, b2, w3, b3)`` made earlier, which saves the
-    repack on a CUDA call.
+    w2: (3, 3, C, F), b2: (F,), w3: (1, 1, F, N) or, for N = 1, (F,), b3:
+    (N,). Returns the N pre-activation outputs (B, out_h, out_w, N), or
+    (B, out_h, out_w) for N = 1, in x's dtype. ``packed`` may carry
+    ``pack_params(w2, b2, w3, b3)`` made earlier, which saves the repack on
+    a CUDA call.
     """
     if x.dim() != 4 or w2.dim() != 4 or w2.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(
             f"expected x (B, Hin, Win, C) and w2 (3, 3, C, F), got "
             f"{tuple(x.shape)} and {tuple(w2.shape)}")
+    if b3.numel() < 1 or w3.numel() != w2.shape[3] * b3.numel():
+        raise ValueError(
+            f"w3 must hold {w2.shape[3]} weights for each of b3's "
+            f"{b3.numel()} outputs, got {tuple(w3.shape)}")
     if out_h < 1 or out_w < 1:
         raise ValueError("output size must be positive")
     return _FusedHeadTail.apply(x, w2, b2, w3, b3, out_h, out_w, packed)

@@ -4,8 +4,12 @@ counterpart of ``txr/utils/profiling.py``.
 ``span(name)`` is a ``torch.profiler`` range named ``txr.<name>`` while a
 profiler is recording, and one shared no-op context otherwise, so the
 layers of the main path (the encoder, its attention and position
-embedding, the head; the insert's pack, sort and reduce) carry their
-ranges at no cost when nobody traces. Ranges nest as the calls do; they
+embedding, the head; the insert's pack, sort and reduce; in Depth
+Anything 3's any-view model also the QK-norm and RoPE
+``models.encoder.qk_prep``, the cross-view attention calls
+``models.encoder.crossview`` apart from the within-view
+``models.encoder.attention``, and the head's ray branch
+``models.head.ray``) carry their ranges at no cost when nobody traces. Ranges nest as the calls do; they
 launch no device work, so a CUDA-graph capture is unaffected. A range is
 recorded as a host operation (``_RecordFunctionFast``), not as a user
 annotation (``record_function``): it adds no range to the device's
@@ -20,7 +24,10 @@ tensor per name, and read with one sync by ``counters()``;
 ``reset_counters()`` clears them all. The main path keeps
 ``models.pos_embed_hits`` / ``models.pos_embed_misses`` (host ints: each
 resized position-embedding lookup the encoder reused or recomputed,
-``models/vit.py``) and ``fusion.rows_sorted`` / ``fusion.points_valid``
+``models/vit.py``), ``models.attention_pairs_local`` /
+``models.attention_pairs_crossview`` (host ints: the query-key pairs of
+each within-view and cross-view attention call, B S^2, ``models/vit.py``)
+and ``fusion.rows_sorted`` / ``fusion.points_valid``
 (the insert's rows sorted and the batch's mask summed on its device,
 ``fusion/offset_map.py``).
 
