@@ -67,12 +67,17 @@ weights on the plain route. ``compare`` reports each kernel check's signed
 error and holds the attention and tail kernels to a bias bound (``BIAS``).
 ``da3_path`` drives Depth Anything 3 any-view (``v3`` / ``large-anyview``,
 seeded weights drawn on the card) at 16 views of 1080p a step: 24
-attention, 2 tail and 1 reduce launches a step, then on the staged step's
-own activations the attention kernel at a cross-view layer (one sequence
-of 39,088 tokens after QK-norm and RoPE) against a float32 plain
-attention taken in blocks of query rows, and the tail kernel of both
-branches (2 and 7 output channels) against its plain version in float32,
-and no further from it than ``DPTHead``'s unfused bf16 tail.
+attention, 16 QK-norm / RoPE, 2 tail and 1 reduce launches a step, then
+on the staged step's own activations the QK-norm / RoPE kernel's in-place
+result at blocks 9 and 23 against its plain version on the block's own
+pre-prep qkv (``compare_qk_prep``), the attention kernel at a cross-view
+layer (one sequence of 39,088 tokens after QK-norm and RoPE) against a
+float32 plain attention taken in blocks of query rows, and the tail
+kernel of both branches (2 and 7 output channels) against its plain
+version in float32, and no further from it than ``DPTHead``'s unfused
+bf16 tail. ``check_qk_prep`` holds the QK-norm / RoPE kernel alone at
+(16, 2443, 3072), an odd B x S and five heads, and times its launch, its
+wrapper and the plain chain.
 
 ``sfm_path`` runs the fusion CLI's sparse path, which holds no kernel of
 the port (plain PyTorch on the card), at the CLI's operating point:
@@ -270,6 +275,12 @@ from txr_torch.ops.quant_fused import kernel_geometry as int8_geometry
 from txr_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                   compute_da_resize, resize_bicubic,
                                   resize_bilinear)
+from txr_torch.ops.qk_prep import HEAD_DIM as QK_HEAD_DIM
+from txr_torch.ops.qk_prep import ROWS_PER_BLOCK as QK_ROWS_PER_BLOCK
+from txr_torch.ops.qk_prep import THREADS as QK_THREADS
+from txr_torch.ops.qk_prep import _launch as qk_prep_launch
+from txr_torch.ops.qk_prep import (qk_prep, qk_prep_plain,
+                                   require_qk_prep_operands, rope_tables)
 from txr_torch.ops.scan import ITEMS as SCAN_ITEMS
 from txr_torch.ops.scan import MAX_COLS as SCAN_MAX_COLS
 from txr_torch.ops.scan import THREADS as SCAN_THREADS
@@ -1396,6 +1407,137 @@ def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
             "within_twice_its_bound": ms <= 2 * full["bound_ms"]}
 
 
+# ------------------------------------------------------------ QK-norm / RoPE
+
+# least share of q and k that the qk_prep kernel gives bit-equal to its
+# plain version: only the LayerNorm's sums are taken in another order
+QK_PREP_BIT_EQUAL = 0.99
+
+
+def bf16_ordered(x: torch.Tensor) -> torch.Tensor:
+    """bf16 bit patterns as int32 in the order of their values: neighbouring
+    values differ by 1 (+0 and -0 are both 0)."""
+    i = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(i >= 0x8000, 0x8000 - i, i)
+
+
+def rope_term_scale(qkv: torch.Tensor, heads: int, q_norm, k_norm,
+                    tables) -> torch.Tensor:
+    """|x cos| + |rot(x) sin| for q and k, (B, S, 2*H*D) float32, with x
+    their float32 LayerNorm: the size of the two terms whose sum the
+    rotation rounds. Where they cancel, the sum's own ulp is far below the
+    rounding error of either term."""
+    b, s, _ = qkv.shape
+    q, k, _ = qkv.view(b, s, 3, heads, -1).unbind(2)
+    cos, sin = tables
+    out = []
+    for x, ln in ((q, q_norm), (k, k_norm)):
+        x = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(),
+                         ln.bias.float(), ln.eps)
+        swapped = x.unflatten(-1, (2, 2, -1)).flip(-2).flatten(-3)
+        out.append(x.abs() * cos.abs() + swapped.abs() * sin.abs())
+    return torch.stack(out, dim=2).view(b, s, -1)
+
+
+def compare_qk_prep(case: str, got: torch.Tensor, want: torch.Tensor,
+                    qkv: torch.Tensor, heads: int, q_norm, k_norm,
+                    tables) -> dict:
+    """Emit one kernel_check line for the qk_prep kernel's (B, S, 3*H*64)
+    result against its plain version's on the input ``qkv``; raise unless v
+    is bit-equal, at least QK_PREP_BIT_EQUAL of q and k are bit-equal, and
+    every value of q and k lies within one bf16 ulp of the rotation's terms
+    (``rope_term_scale``). The line also gives the largest difference in
+    ulps of the value itself and the share beyond one: values where the
+    terms cancel."""
+    torch.cuda.synchronize()
+    c = heads * QK_HEAD_DIM
+    v_equal = torch.equal(got[..., 2 * c:], want[..., 2 * c:])
+    g, w = got[..., :2 * c], want[..., :2 * c]
+    own = (bf16_ordered(g) - bf16_ordered(w)).abs()
+    worst_own = int(own.max().item())
+    share = (own == 0).float().mean().item()
+    beyond = (own > 1).float().mean().item()
+    del own
+    _, exp = torch.frexp(rope_term_scale(qkv, heads, q_norm, k_norm,
+                                         tables))
+    term_ulps = (g.float() - w.float()).abs() / torch.exp2(
+        (exp - 8).float())
+    worst = term_ulps.max().item()
+    del term_ulps, exp
+    ok = v_equal and worst <= 1 and share >= QK_PREP_BIT_EQUAL
+    line = {"phase": "kernel_check", "kernel": "qk_prep", "case": case,
+            "shape": list(got.shape), "v_bit_equal": v_equal,
+            "bit_equal_share": share,
+            "least_bit_equal_share": QK_PREP_BIT_EQUAL,
+            "max_ulps_of_terms": worst, "max_ulps": worst_own,
+            "share_beyond_one_ulp": beyond, "ok": ok}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"qk_prep/{case}: v bit-equal {v_equal}, "
+                             f"{share} bit-equal, {worst} ulps of the "
+                             f"rotation's terms at most")
+    return line
+
+
+def qk_prep_operands(b: int, s: int, heads: int, grid: tuple,
+                     gen: torch.Generator) -> tuple:
+    """A seeded bf16 qkv (values of mean 0.5 and std 2), bf16 q_norm and
+    k_norm, and the rope tables of ``grid`` (1 + rows * cols = s)."""
+    qkv = (torch.randn((b, s, 3 * heads * QK_HEAD_DIM), generator=gen,
+                       device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
+    norms = []
+    for _ in range(2):
+        ln = torch.nn.LayerNorm(QK_HEAD_DIM, eps=1e-6, device="cuda",
+                                dtype=torch.bfloat16)
+        with torch.no_grad():
+            ln.weight.copy_(torch.randn((QK_HEAD_DIM,), generator=gen,
+                                        device="cuda") * 0.3 + 1.0)
+            ln.bias.copy_(torch.randn((QK_HEAD_DIM,), generator=gen,
+                                      device="cuda") * 0.1)
+        norms.append(ln)
+    return (qkv, heads, *norms,
+            rope_tables(*grid, QK_HEAD_DIM, 100.0, "cuda"))
+
+
+@torch.no_grad()
+def check_qk_prep(batch: int, gen: torch.Generator) -> dict:
+    """The qk_prep kernel against its plain version at DA3's 16-view step
+    (16, 2443, 3072), at an odd B x S and at five heads with a ragged last
+    block; then timed in place against the plain chain."""
+    require_geometry("qk_prep", kernels.lib().txr_qk_prep_geometry,
+                     (QK_HEAD_DIM, QK_THREADS, QK_ROWS_PER_BLOCK,
+                      QK_THREADS // QK_ROWS_PER_BLOCK))
+    for b, s, heads, grid in ((DA3_VIEWS, 2443, HEADS, (37, 66)),
+                              (3, 1001, HEADS, (40, 25)),
+                              (2, 37, 5, (6, 6))):
+        qkv, *rest = qk_prep_operands(b, s, heads, grid, gen)
+        want = qk_prep_plain(qkv, *rest)
+        got = qk_prep(qkv.clone(), *rest)
+        compare_qk_prep(f"B={b} S={s} heads={heads}", got, want, qkv,
+                        *rest)
+        require_repeatable("qk_prep", lambda: qk_prep(qkv.clone(), *rest))
+        del qkv, want, got
+    args = qk_prep_operands(DA3_VIEWS, 2443, HEADS, (37, 66), gen)
+    b, s, width = args[0].shape
+    # in place over and over: each call renormalises the last one's values;
+    # "device" launches without the wrapper's checks on the host, which at
+    # about 0.1 ms a call would otherwise set the pace
+    spread = time_spread({"kernel": lambda: qk_prep(*args),
+                          "device": lambda: qk_prep_launch(*args),
+                          "plain": lambda: qk_prep_plain(*args)}, runs=10)
+    ms = spread["device"]["median"]
+    nbytes = 2 * (2 * b * s * width // 3) * 2 + 2 * s * QK_HEAD_DIM * 4
+    return {"name": "qk_prep", "route": "cuda",
+            "source": "txr_torch/csrc/qk_prep.cu",
+            "replaces": None, "shape": [b, s, width],
+            "ms": spread["kernel"]["median"], "ms_spread": spread["kernel"],
+            "device_ms": ms, "device_ms_spread": spread["device"],
+            "plain_ms": spread["plain"]["median"],
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "gbytes_per_s": nbytes / ms / 1e6,
+            "geometry": require_qk_prep_operands(*args)}
+
+
 # --------------------------------------------------------------- reference
 
 def check_reference(gen: torch.Generator) -> None:
@@ -2364,7 +2506,8 @@ def registry_path(frames: int) -> list:
 # cross-view layers whose qkv is checked, launches a step
 DA3_VIEWS = 16
 DA3_BLOCKS = (9, 23)
-DA3_EXPECT = {"attention": 24, "dpt_tail": 2, "offset_reduce": 1}
+DA3_EXPECT = {"attention": 24, "dpt_tail": 2, "offset_reduce": 1,
+              "qk_prep": 16}
 
 
 def attention_reference_blocked(qkv: torch.Tensor, heads: int,
@@ -2393,16 +2536,22 @@ class AnyviewCapture:
         self.blocks = tuple(blocks)
         self.head = None
         self.qkv = {}
+        self.pre = {}
         self.tails = {}
 
     @contextlib.contextmanager
     def during(self, model, x: torch.Tensor):
         self.head = model.head
         enc = model.encoder
-        handles = [
-            getattr(enc, f"block_{i}").attn.qk_prep.register_forward_hook(
-                lambda mod, args, out, i=i: self.qkv.__setitem__(i, out))
-            for i in self.blocks]
+        handles = []
+        for i in self.blocks:
+            prep = getattr(enc, f"block_{i}").attn.qk_prep
+            # the kernel updates qkv in place: keep a copy of its input
+            handles.append(prep.register_forward_pre_hook(
+                lambda mod, args, i=i: self.pre.__setitem__(
+                    i, (mod, args[0].clone(), *args[1:]))))
+            handles.append(prep.register_forward_hook(
+                lambda mod, args, out, i=i: self.qkv.__setitem__(i, out)))
         for prefix in ("head_conv", "ray_conv"):
             conv1 = getattr(model.head, prefix + "1")
             handles.append(conv1.register_forward_hook(
@@ -2421,8 +2570,18 @@ def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
     staged step's own operands, each against its plain version (ATTN_TOL,
     TAIL_TOL); each tail also no further from the float32 plain version, in
     rms, than ``DPTHead._tail`` (the unfused bf16 route: upsample, conv2,
-    ReLU, conv3 as separate ops) on the same conv1 input."""
+    ReLU, conv3 as separate ops) on the same conv1 input. First the
+    qk_prep kernel's result at each captured block, as the model handed it
+    to attention, against the plain version on the block's own pre-prep
+    qkv (``compare_qk_prep``)."""
     rec = []
+    for i, (mod, qkv, heads, tables) in sorted(cap.pre.items()):
+        args = (qkv, heads, mod.q_norm, mod.k_norm, tables)
+        with torch.no_grad():
+            rec.append(compare_qk_prep(
+                f"da3 block {i} qkv {list(qkv.shape)}", cap.qkv[i],
+                qk_prep_plain(*args), *args))
+    cap.pre.clear()
     head = cap.head
     for i, qkv in sorted(cap.qkv.items()):
         one = qkv.view(1, -1, qkv.shape[-1])
@@ -2456,7 +2615,8 @@ def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
     return [{k: r.get(k) for k in ("kernel", "case", "least_margin",
                                    "max_abs_err", "err_rms", "value_rms",
                                    "unfused_err_rms", "mean_signed_rel",
-                                   "mean_signed_z") if k in r}
+                                   "mean_signed_z", "max_ulps_of_terms",
+                                   "bit_equal_share") if k in r}
             for r in rec]
 
 
@@ -5784,7 +5944,7 @@ def main() -> int:
     summary = []
     for check in (check_attention, check_attention_boundmax,
                   check_attention_bhsd, check_tail, check_scan,
-                  check_int8_linear, check_conv3x3):
+                  check_int8_linear, check_conv3x3, check_qk_prep):
         rows = check(args.frames, gen)
         summary.extend(rows if isinstance(rows, list) else [rows])
         torch.cuda.empty_cache()

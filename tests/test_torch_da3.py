@@ -21,7 +21,8 @@ from txr_torch.models.depth_anything import (DepthAnything,
                                              DepthAnythingModel,
                                              build_model)
 from txr_torch.models.dpt import DPTConfig
-from txr_torch.models.vit import QKPrep, ViTConfig, apply_rope, rope_tables
+from txr_torch.models.vit import QKPrep, ViTConfig
+from txr_torch.ops.qk_prep import apply_rope, rope_tables
 from txr_torch.ops import attention
 
 ROOT = Path(__file__).resolve().parents[1]

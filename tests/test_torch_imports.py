@@ -281,7 +281,7 @@ def test_every_kernel_has_a_launch_count():
     assert set(k.launches) == {"attention", "attention_boundmax",
                                "attention_key_norm", "attention_bhsd",
                                "dpt_tail", "segscan", "offset_reduce",
-                               "int8_linear", "conv3x3"}
+                               "int8_linear", "conv3x3", "qk_prep"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
@@ -289,7 +289,8 @@ def test_every_kernel_has_a_launch_count():
 
 @pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd",
                                   "attention_boundmax", "offset_map_insert",
-                                  "voxel_downsample", "lsd_lines"])
+                                  "voxel_downsample", "lsd_lines",
+                                  "qk_prep"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -323,6 +324,12 @@ def test_cpu_tensors_never_reach_a_kernel(call):
     elif call == "conv3x3":
         conv3x3_stripe(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8),
                        torch.ones(8))
+    elif call == "qk_prep":
+        from txr_torch.ops.qk_prep import qk_prep, rope_tables
+
+        norm = torch.nn.LayerNorm(64).to(torch.bfloat16)
+        qk_prep(torch.ones(1, 7, 3 * 2 * 64, dtype=torch.bfloat16), 2, norm,
+                norm, rope_tables(2, 3, 64, 100.0, "cpu"))
     else:
         q = torch.ones(1, 3, 4, 64)
         attention_flash(q, q, q)

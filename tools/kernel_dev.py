@@ -7,6 +7,7 @@
     timeout 240 python3 tools/kernel_dev.py int8
     timeout 240 python3 tools/kernel_dev.py tail
     timeout 240 python3 tools/kernel_dev.py scan
+    timeout 240 python3 tools/kernel_dev.py qk_prep
 
 builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
 the chosen source (registers, spills, and the "wgmma ... serialized"
@@ -29,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 import txr_torch._cuda as kernels
-from chip_smoke import (ATTN_TOL, CONV_TOL, SCAN_TOL, TAIL_TOL, compare,
-                        compare_bits, int8_parts, scattered_points,
+from chip_smoke import (ATTN_TOL, CONV_TOL, SCAN_TOL, TAIL_TOL, check_qk_prep,
+                        compare, compare_bits, int8_parts, scattered_points,
                         time_spread)
 from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
                                          _reduce_unfused, _sort_keys,
@@ -308,10 +309,22 @@ def tail(gen) -> bool:
     return ok
 
 
+def qk_prep(gen) -> bool:
+    """``chip_smoke.py``'s check: three shapes against the plain version
+    (raises on a miss), then the launch, the wrapper and the plain chain
+    timed in turns."""
+    row = check_qk_prep(16, gen)
+    print(f"qk_prep {row['shape']}: {row['device_ms']:.4f} ms a launch "
+          f"({row['ms']:.4f} through the wrapper), bound "
+          f"{row['bound_ms']:.4f} ms, {row['gbytes_per_s']:.0f} GB/s; plain "
+          f"{row['plain_ms']:.4f} ms", flush=True)
+    return True
+
+
 MODES = {"attention": ("attention.cu", attention),
          "boundmax": ("attention.cu", boundmax), "conv": ("conv3x3.cu", conv),
          "int8": ("int8_linear.cu", int8), "tail": ("dpt_tail.cu", tail),
-         "scan": ("segscan.cu", scan)}
+         "scan": ("segscan.cu", scan), "qk_prep": ("qk_prep.cu", qk_prep)}
 
 
 def main() -> int:

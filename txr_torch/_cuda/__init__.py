@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
                             "attention_key_norm": 0, "attention_bhsd": 0,
                             "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
-                            "int8_linear": 0, "conv3x3": 0}
+                            "int8_linear": 0, "conv3x3": 0, "qk_prep": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -214,6 +214,13 @@ def _declare(h: ctypes.CDLL) -> None:
     h.txr_offset_reduce_fwd.argtypes = [p, p, p, p, ll, i, p, p, p, p, p, p,
                                         p]
     h.txr_offset_reduce_fwd.restype = i
+    # (out[4]: head width, threads a block, rows a block, threads a row)
+    h.txr_qk_prep_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_qk_prep_geometry.restype = None
+    # (qkv, cos, sin, q weight, q bias, k weight, k bias, B, S, H, eps,
+    # stream)
+    h.txr_qk_prep_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
+    h.txr_qk_prep_fwd.restype = i
 
 
 def check(err: int, kernel: str) -> None:

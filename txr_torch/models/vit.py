@@ -24,11 +24,13 @@ by default) adds to the same blocks and the same loop, from that layer on:
 odd layers attend across every token of every view of the batch (the
 (B, S, 3D) projection viewed as (1, B*S, 3D), no copy, through the same
 kernel) and even layers within each view; q and k take a LayerNorm over
-the head dimension and a 2-D rotary embedding (``QKPrep``, plain PyTorch,
-written back into the fused layout); a learned camera token takes the cls
-slot (one for view 0, one shared by the others); each taken layer hands on
-the last within-view layer's output joined to its own (2 D channels), each
-after the final LayerNorm. None of this is in ``txr``.
+the head dimension and a 2-D rotary embedding (``QKPrep``: on the card one
+kernel, ``ops.qk_prep``, that updates q and k of the fused projection in
+place in float32 registers; on the CPU its plain version); a learned camera
+token takes the cls slot (one for view 0, one shared by the others); each
+taken layer hands on the last within-view layer's output joined to its own
+(2 D channels), each after the final LayerNorm. None of this is in
+``txr``.
 
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from txr_torch.core.derived import Derived
 from txr_torch.ops.attention import (fused_attention, multi_head_attention,
                                      split_heads)
+from txr_torch.ops.qk_prep import qk_prep, rope_tables
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import Int8LinearFused
 from txr_torch.ops.resize import resize_bicubic
@@ -152,62 +155,28 @@ class SwiGLU(nn.Module):
         return self.w3(F.silu(x1) * x2)
 
 
-def rope_tables(ph: int, pw: int, head_dim: int, base: float,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos and sin, (1 + ph*pw, 1, head_dim) float32, of the 2-D rotary
-    embedding (the CroCo / VGGT convention): the first half of a head's
-    dimensions turns with the token's row, the second with its column, each
-    half at the frequencies ``base^(-2j / half)`` repeated over its two
-    quarters. The cls (camera) token sits at (0, 0), patch (r, c) at
-    (r + 1, c + 1)."""
-    half = head_dim // 2
-    inv = base ** -(torch.arange(0, half, 2, device=device,
-                                 dtype=torch.float32) / half)
-    rows = torch.arange(ph, device=device, dtype=torch.float32) + 1
-    cols = torch.arange(pw, device=device, dtype=torch.float32) + 1
-    zero = torch.zeros(1, device=device)
-    r = torch.cat([zero, rows.repeat_interleave(pw)])[:, None] * inv
-    c = torch.cat([zero, cols.repeat(ph)])[:, None] * inv
-    angles = torch.cat([r, r, c, c], dim=1)[:, None]
-    return angles.cos(), angles.sin()
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """x (..., S, H, D) turned by ``rope_tables``: x cos + rot(x) sin, with
-    rot taking each half's quarters (a, b) to (-b, a)."""
-    xr = x.unflatten(-1, (2, 2, x.shape[-1] // 4))
-    rot = torch.stack([-xr[..., 1, :], xr[..., 0, :]], dim=-2).flatten(-3)
-    return x * cos + rot * sin
-
-
 class QKPrep(nn.Module):
     """Depth Anything 3's QK-norm (a LayerNorm over the head dimension, with
     weight and bias, one for q and one for k) and 2-D RoPE on the fused
-    (B, S, 3*H*D) projection, in float32, written back into a new fused
-    tensor so the attention call reads it as before. A module of its own so
-    that attention proper starts where its forward ends."""
+    (B, S, 3*H*D) projection, in float32 rounded once, through
+    ``ops.qk_prep.qk_prep``: on the card one kernel updates q and k of the
+    fused tensor in place, on the CPU the plain version returns a new one.
+    Either way its forward returns the tensor the attention call reads. A
+    module of its own so that attention proper starts where its forward
+    ends; it counts ``models.qk_prep_kernel_calls`` or
+    ``models.qk_prep_plain_calls``, one a call."""
 
     def __init__(self, head_dim: int):
         super().__init__()
         self.q_norm = nn.LayerNorm(head_dim, eps=1e-6)
         self.k_norm = nn.LayerNorm(head_dim, eps=1e-6)
 
-    @staticmethod
-    def _prep(x, ln, tables):
-        x = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(),
-                         ln.bias.float(), ln.eps)
-        return apply_rope(x, *tables)
-
     def forward(self, qkv: torch.Tensor, heads: int, tables):
         """``tables``: ``rope_tables`` of the batch's patch grid."""
         with span("models.encoder.qk_prep"):
-            b, s, _ = qkv.shape
-            q, k, v = qkv.view(b, s, 3, heads, -1).unbind(2)
-            q = self._prep(q, self.q_norm, tables)
-            k = self._prep(k, self.k_norm, tables)
-            return torch.stack([q.to(v.dtype), k.to(v.dtype), v],
-                               dim=2).view(b, s, -1)
+            count("models.qk_prep_plain_calls" if qkv.device.type == "cpu"
+                  else "models.qk_prep_kernel_calls", 1)
+            return qk_prep(qkv, heads, self.q_norm, self.k_norm, tables)
 
 
 class Attention(nn.Module):
