@@ -13,13 +13,14 @@ paths below give it, and then drives those paths at full width:
     -> insert into the packed mean-offset voxel map (capacity 2^21, 1 cm)
 
 Each kernel is held against its plain version at its path shapes and at
-ragged ones (attention: S = 2432 and 77, ``kv_len`` 1 / 64 / 1984 / 2000,
-score mode ``boundmax`` with its key-norm pre-pass, three stride patterns of
-the (B, H, S, D) entry; conv: an image smaller than a tile, F = 136; int8
-linear: M = 1 and 129, K = 16 and 4096 + 16, N = 8, an all-zero row, values
-on rounding ties; tail: every head width, every resize ratio, an image
-smaller than a tile; scan: the insert's real segments, one segment over 146
-tiles, N = 1 and one tile +- 1 row); the fused voxel-map reduce is held bit
+ragged ones (attention: S = 2432, 256 and 77, ``kv_len`` 1 / 64 / 1984 /
+2000, score mode ``boundmax`` with its key-norm pre-pass, three stride
+patterns of the (B, H, S, D) entry; conv: one whole tile, an image smaller
+than a tile, F = 136; int8 linear: one whole tile, M = 1 and 129, K = 16 and
+4096 + 16, N = 8, an all-zero row, values on rounding ties; tail: every head
+width, every resize ratio, an image smaller than a tile; scan: the insert's
+real segments, one segment over 146 tiles, N = 1 and one tile +- 1 row, 7
+columns with random starts or none); the fused voxel-map reduce is held bit
 for bit against the unfused route (``torch.sort``, the standalone scan
 kernel, ``torch.nonzero`` compaction) on a full map, an overflowing one, an
 all-invalid batch, a saturating voxel and ``offset_map_merge``, with
@@ -203,11 +204,10 @@ prints no result.
 Options (none is needed): ``--frames N`` frames per step (default 8);
 ``--profile`` builds with ``-Xptxas -v`` and adds a ``ptxas`` line (each
 kernel's registers and spills; a spill or a "wgmma serialized" warning
-fails the run), an ``insert_profile`` line (one insert at the path's shape
-under ``torch.profiler``: device time by kernel with calls, and the gaps in
-which the device waited for the host) and a ``profile`` line per path (one
-extra step under ``torch.profiler``: device time by kernel, largest
-first).
+fails the run).
+
+``KERNEL_CHECKS`` names each kernel's on-card checks; ``tools/kernel_dev.py
+<mode>`` runs one entry of it alone.
 """
 
 from __future__ import annotations
@@ -554,15 +554,14 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
         compare("attention", f"kv_len={kv} B=2 S={s}",
                 fused_attention(sub, HEADS, HEAD_DIM, kv),
                 attention_reference(sub, HEADS, HEAD_DIM, kv), **ATTN_TOL)
-    # a sequence that is a multiple of both tiles
-    even = qkv[:2, :2432].contiguous()
-    compare("attention", "S=2432 B=2", fused_attention(even, HEADS, HEAD_DIM),
-            attention_reference(even, HEADS, HEAD_DIM), **ATTN_TOL)
-    del even
-    # a short sequence: one ragged tile, fewer query rows than a block
-    tiny = qkv[:1, :77].contiguous()
-    compare("attention", "S=77 B=1", fused_attention(tiny, HEADS, HEAD_DIM),
-            attention_reference(tiny, HEADS, HEAD_DIM), **ATTN_TOL)
+    # a sequence that is a multiple of both tiles; two whole key tiles and
+    # a ragged query block; a short sequence: one ragged tile, fewer query
+    # rows than a block
+    for label, x in (("S=2432 B=2", qkv[:2, :2432].contiguous()),
+                     ("S=256 B=1", qkv[:1, :256].contiguous()),
+                     ("S=77 B=1", qkv[:1, :77].contiguous())):
+        compare("attention", label, fused_attention(x, HEADS, HEAD_DIM),
+                attention_reference(x, HEADS, HEAD_DIM), **ATTN_TOL)
 
     plain_ms = time_ms(lambda: attention_reference(qkv, HEADS, HEAD_DIM),
                        runs=3)
@@ -635,9 +634,11 @@ def check_attention_boundmax(batch: int, gen: torch.Generator) -> list:
                       qkv, HEADS, HEAD_DIM, score_mode="boundmax"),
                   **ATTN_TOL)["max_abs_err"]
     require_repeatable("attention_boundmax", lambda: bound_mode(qkv))
-    # a multiple of both tiles, and one ragged tile with fewer query rows
-    # than a block: the masked keys must add nothing to the row sums
+    # a multiple of both tiles, two whole key tiles and a ragged query
+    # block, and one ragged tile with fewer query rows than a block: the
+    # masked keys must add nothing to the row sums
     for label, x in (("S=2432 B=2", qkv[:2, :2432].contiguous()),
+                     ("S=256 B=2", qkv[:2, :256].contiguous()),
                      ("S=77 B=1", qkv[:1, :77].contiguous())):
         compare("attention_boundmax", label, bound_mode(x),
                 attention_reference(x, HEADS, HEAD_DIM,
@@ -729,28 +730,35 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
     require_repeatable("dpt_tail",
                        lambda: fused_head_tail(*args, out_h, out_w))
     # several outputs: Depth Anything 3's depth and ray branches
-    for nout in (2, 7):
-        many = operands(2, 20, 24, 128, nout)
-        got = fused_head_tail(*many, 35, 42)
-        compare("dpt_tail", f"N={nout} outputs: 20x24x128->35x42", got,
-                exact(many, 35, 42), **TAIL_TOL)
+    for nout, (b, hi, wi, ho, wo) in ((2, (2, 20, 24, 35, 42)),
+                                      (7, (2, 20, 24, 35, 42)),
+                                      (7, (1, 12, 20, 21, 33))):
+        many = operands(b, hi, wi, 128, nout)
+        got = fused_head_tail(*many, ho, wo)
+        compare("dpt_tail", f"N={nout} outputs: {hi}x{wi}x128->{ho}x{wo}",
+                got, exact(many, ho, wo), **TAIL_TOL)
         if not torch.equal(got[..., 0], fused_head_tail(
-                *many[:3], many[3][..., :1], many[4][:1], 35, 42)):
+                *many[:3], many[3][..., :1], many[4][:1], ho, wo)):
             raise AssertionError(f"dpt_tail: output 0 of {nout} differs "
                                  f"from the same output alone")
     # every resize ratio, every head width (C = features / 2 of the four
-    # presets), an image smaller than one tile, one column past a tile, and
-    # fewer tiles than multiprocessors
+    # presets), an image smaller than one tile, one column past a tile,
+    # fewer tiles than multiprocessors, and fusion_1's grid upsampled
     for label, (b, hi, wi, ch, ho, wo) in {
             "near-1 ratio 176->180": (1, 176, 40, 128, 180, 45),
             "downsample 64->40": (1, 64, 48, 128, 40, 30),
             "out_h == 1": (1, 32, 16, 128, 1, 20),
+            "ratio 1 down, 4 across": (1, 8, 8, 64, 8, 32),
             "C=32 (vits)": (2, 20, 24, 32, 35, 42),
             "C=64 (vitb)": (2, 20, 24, 64, 35, 42),
+            "C=128 (vitl)": (1, 20, 24, 128, 35, 42),
             "C=192 (vitg)": (2, 20, 24, 192, 35, 42),
             "smaller than a tile 5x7": (1, 4, 4, 128, 5, 7),
+            "smaller than a tile 5x7, C=32": (1, 4, 4, 32, 5, 7),
             "out_w = tile width + 1": (1, 12, 20, 128, 21, 33),
+            "out_w = tile width + 1, C=192": (2, 12, 20, 192, 21, 33),
             "10 tiles on all multiprocessors": (1, 24, 36, 128, 40, 60),
+            "fusion_1 grid, B=2": (2, 74, 132, 128, 130, 231),
     }.items():
         g = require_tail_geometry((b, hi, wi, ch, ho, wo), sms)
         small = operands(b, hi, wi, ch)
@@ -758,6 +766,8 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
                 f"{g['tile'][0]}, grid {g['grid']}",
                 fused_head_tail(*small, ho, wo), exact(small, ho, wo),
                 **TAIL_TOL)
+        require_repeatable("dpt_tail",
+                           lambda: fused_head_tail(*small, ho, wo))
 
     plain_ms = time_ms(lambda: head_tail_reference(*args, out_h, out_w),
                        runs=3)
@@ -878,6 +888,16 @@ def check_scan(batch: int, gen: torch.Generator) -> dict:
         compare("segscan", f"N={rows} cols=3, "
                 f"{scan_geometry(rows)['tiles']} tile(s)", kernel(cols, sub),
                 plain(cols, sub), **SCAN_TOL)
+    # 7 columns, random starts: one row, one row short of and past a tile,
+    # no start at all, segments over many tiles
+    for rows, p in ((1, 0.5), (SCAN_TILE - 1, 0.1), (SCAN_TILE + 1, 0.1),
+                    (100_003, 0.2), (100_003, 0.0), (1_000_003, 1e-5)):
+        cols = tuple(torch.randn((rows,), generator=gen, device="cuda")
+                     for _ in range(7))
+        sub = torch.rand((rows,), generator=gen, device="cuda") < p
+        compare("segscan", f"N={rows} cols=7, start share {p}",
+                kernel(cols, sub), plain(cols, sub), **SCAN_TOL)
+        require_repeatable("segscan", lambda: kernel(cols, sub))
 
     plain_ms = time_ms(lambda: plain(wcols, starts), runs=3)
     spread = time_spread({"kernel": lambda: segmented_cumsum_cols(wcols,
@@ -894,6 +914,14 @@ def check_scan(batch: int, gen: torch.Generator) -> dict:
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
             "library_ms": None, "gbytes_per_s": nbytes / ms / 1e6,
             "geometry": scan_geometry(n)}
+
+
+def scattered_points(n: int, gen: torch.Generator) -> PointSet:
+    """``n`` valid points spread over a 6 m cube: at 1 cm nearly every point
+    is a voxel of its own, so one insert of a path step fills a 2^21 map."""
+    return PointSet(torch.rand((n, 3), generator=gen, device="cuda") * 6 - 3,
+                    torch.rand((n, 3), generator=gen, device="cuda"),
+                    torch.ones((n,), dtype=torch.bool, device="cuda"))
 
 
 def require_maps_equal(case: str, got, want) -> int:
@@ -1129,15 +1157,18 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
     geo = int8_geometry(m, 4096, 1024, sms)
     require_geometry("int8_linear", kernels.lib().txr_int8_linear_geometry,
                      (TILE_M, TILE_N, STAGES, geo["smem_bytes"]))
-    # ragged in every way; one row; one row past a tile; K shorter than one
-    # swizzled row; K one 16-byte piece past a whole number of stages; the
-    # narrowest N
-    for label, (rows, k, n) in {"ragged": (300, 96, 136),
+    # one whole tile; ragged in every way; one row; one row past a tile;
+    # K shorter than one swizzled row; K one 16-byte piece past a whole
+    # number of stages; the narrowest N; all three at once
+    for label, (rows, k, n) in {"one tile": (128, 128, 256),
+                                "ragged": (300, 96, 136),
                                 "one row": (1, 1024, 264),
                                 "one row past a tile": (129, 256, 512),
+                                "129 rows, K = N = 1024": (129, 1024, 1024),
                                 "K = 16": (200, 16, 72),
                                 "K = 4096 + 16": (77, 4096 + 16, 264),
-                                "N = 8": (300, 128, 8)}.items():
+                                "N = 8": (300, 128, 8),
+                                "one row, K = 16, N = 8": (1, 16, 8)}.items():
         x, w, b = operands(rows, k, n)
         got = int8_linear(x, w, b)
         compare_bits("int8_linear", f"{label} M={rows} K={k} N={n}", got,
@@ -1145,6 +1176,7 @@ def check_int8_linear(batch: int, gen: torch.Generator) -> dict:
         if not torch.equal(got[rows // 2].float(), b.float()):
             raise AssertionError(
                 f"int8_linear {label}: an all-zero row must give the bias")
+        require_repeatable("int8_linear", lambda: int8_linear(x, w, b))
     # rounding ties: the row maximum 127 makes the scale 1, and every other
     # value k + 0.5 (exact in bf16 up to 64) sits between two integers
     x, w, b = operands(64, 256, 64)
@@ -1255,10 +1287,11 @@ def check_conv3x3(batch: int, gen: torch.Generator) -> dict:
     geo = conv_geometry(batch, 148, 264, 256, 256)
     require_geometry("conv3x3", kernels.lib().txr_conv3x3_geometry,
                      (TILE_H, TILE_W, BLOCK_F, geo["smem_bytes"]))
-    # ragged in every way: H, W, a short channel chunk, few features; an
-    # image smaller than one tile; a feature count that is a multiple of
-    # the feature block of no kind
-    for label, shape in (("ragged 13x21 48->40", (1, 13, 21, 48, 40)),
+    # one whole tile and feature block; ragged in every way: H, W, a short
+    # channel chunk, few features; an image smaller than one tile; a
+    # feature count that is a multiple of the feature block of no kind
+    for label, shape in (("one tile 16x16 64->128", (1, 16, 16, 64, 128)),
+                         ("ragged 13x21 48->40", (1, 13, 21, 48, 40)),
                          ("smaller than a tile 5x7 64->64", (1, 5, 7, 64, 64)),
                          ("F=136 20x33 256->136", (2, 20, 33, 256, 136))):
         x, wgt, bias = operands(*shape)
@@ -1266,6 +1299,8 @@ def check_conv3x3(batch: int, gen: torch.Generator) -> dict:
             compare("conv3x3", f"{label} relu_in={relu}",
                     conv3x3_stripe(x, wgt, bias, relu),
                     exact(x, wgt, bias, relu), **CONV_TOL)
+            require_repeatable("conv3x3",
+                               lambda: conv3x3_stripe(x, wgt, bias, relu))
 
     by_shape = []
     for label, h, w, c, f, per_step in (
@@ -1538,6 +1573,21 @@ def check_qk_prep(batch: int, gen: torch.Generator) -> dict:
             "geometry": require_qk_prep_operands(*args)}
 
 
+# Each kernel's on-card checks by mode (``tools/kernel_dev.py <mode>``): the
+# CUDA source under txr_torch/csrc and the checks, each called as
+# ``check(batch, generator)``. check_offset_reduce returns the entry of the
+# segscan row that times the fused reduce, not a row of its own.
+KERNEL_CHECKS = {
+    "attention": ("attention.cu", (check_attention, check_attention_bhsd)),
+    "boundmax": ("attention.cu", (check_attention_boundmax,)),
+    "conv": ("conv3x3.cu", (check_conv3x3,)),
+    "int8": ("int8_linear.cu", (check_int8_linear,)),
+    "tail": ("dpt_tail.cu", (check_tail,)),
+    "scan": ("segscan.cu", (check_scan, check_offset_reduce)),
+    "qk_prep": ("qk_prep.cu", (check_qk_prep,)),
+}
+
+
 # --------------------------------------------------------------- reference
 
 def check_reference(gen: torch.Generator) -> None:
@@ -1629,9 +1679,9 @@ def check_reference(gen: torch.Generator) -> None:
 
 # ------------------------------------------------------------------- paths
 
-def drive_path(phase: str, frames: int, profile: bool, expect: dict,
-               version: str = "v2", encoder: str = "vitl", built=None,
-               capture=None, **model_kwargs) -> tuple:
+def drive_path(phase: str, frames: int, expect: dict, version: str = "v2",
+               encoder: str = "vitl", built=None, capture=None,
+               **model_kwargs) -> tuple:
     """Drive frames -> depth -> back-projection -> voxel map with the model
     ``build_model(version, encoder, **model_kwargs)`` builds from a CPU
     generator seeded with 0, or with ``built`` (``build_model``'s triple)
@@ -1729,9 +1779,6 @@ def drive_path(phase: str, frames: int, profile: bool, expect: dict,
     if (depth.max() - depth.min()).item() <= 0:
         raise AssertionError("depth is constant")
 
-    if profile:
-        profile_step(phase, lambda: step(dev_frames[1], vm))
-
     out = {"phase": phase, "model": f"{version}/{encoder}",
            "quant": vit_cfg.quant, "fused_head": dpt_cfg.fused_head,
            "fused_convs": dpt_cfg.fused_convs,
@@ -1759,10 +1806,10 @@ QUANT_EXPECT = {**MAIN_EXPECT, "int8_linear": 96, "conv3x3": 9}
 QUANT_ENV = {"TXR_FUSED_CONVS": "1", "TXR_FUSED_HEAD": "1"}
 
 
-def main_path(frames: int, profile: bool) -> tuple:
+def main_path(frames: int) -> tuple:
     """The default configuration: attention, tail and fused-reduce
     kernels."""
-    out, depth = drive_path("main_path", frames, profile, MAIN_EXPECT)
+    out, depth = drive_path("main_path", frames, MAIN_EXPECT)
     emit(out)
     return out, depth
 
@@ -1782,16 +1829,14 @@ def scoped_env(env: dict):
                 os.environ[k] = v
 
 
-def path_with_env(phase: str, env: dict, frames: int, profile: bool,
-                  expect: dict, main_depth: torch.Tensor,
-                  **model_kwargs) -> tuple:
+def path_with_env(phase: str, env: dict, frames: int, expect: dict,
+                  main_depth: torch.Tensor, **model_kwargs) -> tuple:
     """``drive_path`` with ``env`` set in the environment (restored
     afterwards), and its depth against ``main_path``'s (same weights and
     frames) as a share of main_path's depth span. Returns the line and the
     depth."""
     with scoped_env(env):
-        out, depth = drive_path(phase, frames, profile, expect,
-                                **model_kwargs)
+        out, depth = drive_path(phase, frames, expect, **model_kwargs)
     span = (main_depth.max() - main_depth.min()).item()
     diff = (depth - main_depth).abs() / span
     out["depth_vs_main_path"] = {
@@ -1800,26 +1845,25 @@ def path_with_env(phase: str, env: dict, frames: int, profile: bool,
     return out, depth
 
 
-def quant_path(frames: int, profile: bool, main_depth: torch.Tensor) -> tuple:
+def quant_path(frames: int, main_depth: torch.Tensor) -> tuple:
     """The int8 encoder with the 3x3 conv kernel in the head, as a user
     reaches them: ``quant="int8p"`` and ``TXR_FUSED_CONVS=1`` /
     ``TXR_FUSED_HEAD=1``. Same weights and frames as ``main_path``. Returns
     the line and the depth."""
-    out, depth = path_with_env("quant_path", QUANT_ENV, frames, profile,
-                               QUANT_EXPECT, main_depth, quant="int8p")
+    out, depth = path_with_env("quant_path", QUANT_ENV, frames, QUANT_EXPECT,
+                               main_depth, quant="int8p")
     if not (out["fused_convs"] and out["fused_head"]):
         raise AssertionError("quant_path: the fused head settings are off")
     emit(out)
     return out, depth
 
 
-def boundmax_path(frames: int, profile: bool,
-                  main_depth: torch.Tensor) -> dict:
+def boundmax_path(frames: int, main_depth: torch.Tensor) -> dict:
     """``main_path``'s configuration with ``TXR_ATTN_SCORES=boundmax``,
     as a user selects the score mode: every attention call takes the
     bound-shift kernel and its key-norm pre-pass, none the f32max one."""
     out, _ = path_with_env(
-        "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames, profile,
+        "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames,
         {"attention_boundmax": 24, "attention_key_norm": 24, "dpt_tail": 1,
          "offset_reduce": 1}, main_depth)
     out["score_mode"] = "boundmax"
@@ -1830,7 +1874,8 @@ def boundmax_path(frames: int, profile: bool,
 def odd_heads_path(frames: int, gen: torch.Generator) -> dict:
     """A ViT encoder whose head count is odd, which sends attention through
     ``multi_head_attention`` on (B, H, S, D) views: two blocks at the real
-    sequence length, against the same encoder with ``use_flash=False``."""
+    sequence length, against the same encoder in float32 with
+    ``use_flash=False``."""
     in_h, in_w = compute_da_resize(H, W, 518)
     vit = ViTConfig(hidden_size=ODD_HEADS * HEAD_DIM, num_heads=ODD_HEADS,
                     num_layers=2, out_layers=(0, 0, 1, 1))
@@ -1846,17 +1891,22 @@ def odd_heads_path(frames: int, gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
         ms = time_ms(lambda: enc(x), runs=3)
+        enc = enc.float()
         for blk in range(vit.num_layers):
             attn = getattr(enc, f"block_{blk}").attn
             attn.cfg = replace(attn.cfg, use_flash=False)
-        want = enc(x)
+        want = enc(x.float())
     if counts["attention_bhsd"] != vit.num_layers or counts["attention"]:
         raise AssertionError(f"odd_heads_path launch counts {counts}")
+    # against float32, not the plain route in bf16: both bf16 routes lie as
+    # far from float32 (max 0.050 to 0.058, rms 0.0052 on values of rms 1,
+    # 13 seeded inputs on an H100; none over the tolerance), and against
+    # each other their errors add up to 0.0625 near 1 (3 of 12 inputs over)
     tol = dict(ATTN_TOL, atol=3e-2, bias_z=None, bias_why=None,
                why="the attention tolerance with its absolute part widened "
-                   "to 4 bf16 ulps of a value of 2: the two runs differ in "
-                   "the attention outputs by that tolerance, and a "
-                   "projection, an MLP and two LayerNorms in bf16 follow")
+                   "to 4 bf16 ulps of a value of 2: the kernel's attention "
+                   "output is within that tolerance, and a projection, an "
+                   "MLP and two LayerNorms in bf16 follow")
     errs = [compare("odd_heads_encoder", f"hidden state {i}", g, w,
                     **tol)["max_abs_err"]
             for i, (g, w) in enumerate(zip(got, want))]
@@ -2478,7 +2528,7 @@ def registry_path(frames: int) -> list:
         model, vit_cfg, dpt_cfg = built
         policy = check_policy(model, vit_cfg, label)
         head_shift = centre_head(model)
-        out, depth = drive_path("registry_path", frames, False, expect,
+        out, depth = drive_path("registry_path", frames, expect,
                                 version, encoder, built=built, capture=cap)
         if bool(dpt_cfg.fused_convs) != convs or len(cap.convs) != (
                 len(CONV_SITES) if convs else 0):
@@ -2630,7 +2680,7 @@ def da3_path() -> dict:
     built = build_model(
         "v3", "large-anyview", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(0))
-    out, depth = drive_path("da3_path", DA3_VIEWS, False, DA3_EXPECT, "v3",
+    out, depth = drive_path("da3_path", DA3_VIEWS, DA3_EXPECT, "v3",
                             "large-anyview", built=built, capture=cap)
     out.update(kernel_checks=check_anyview(cap, tuple(depth.shape[1:])),
                crossview_tokens=DA3_VIEWS * out["tokens"],
@@ -2684,7 +2734,7 @@ def batch_path(main_depth: torch.Tensor, quant_depth: torch.Tensor) -> list:
             t_phase = time.perf_counter()
             cap = Capture(blocks=(0, vit_cfg.num_layers - 1),
                           int8_block=vit_cfg.num_layers // 2)
-            out, depth = drive_path("batch_path", frames, False, expect,
+            out, depth = drive_path("batch_path", frames, expect,
                                     built=built, capture=cap)
             if len(cap.convs) != (len(CONV_SITES) if env else 0):
                 raise AssertionError(f"batch_path {label} {frames}: "
@@ -5790,90 +5840,6 @@ def train_path(smi: str) -> dict:
     return out
 
 
-def profile_step(phase: str, run_step) -> None:
-    """One step under ``torch.profiler``; emit the device time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue        # an operator's row repeats its kernels' time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append({"name": e.key[:90], "calls": e.count,
-                         "ms": us / 1e3})
-    rows.sort(key=lambda r: -r["ms"])
-    device_ms = sum(r["ms"] for r in rows)
-    emit({"phase": "profile", "of": phase,
-          "step_wall_ms_under_profiler": wall_ms,
-          "device_ms": device_ms, "kernels_by_device_ms": rows[:30],
-          "rest_ms": sum(r["ms"] for r in rows[30:])})
-
-
-def scattered_points(n: int, gen: torch.Generator) -> PointSet:
-    """``n`` valid points spread over a 6 m cube: at 1 cm nearly every point
-    is a voxel of its own, so one insert of a path step fills a 2^21 map."""
-    return PointSet(torch.rand((n, 3), generator=gen, device="cuda") * 6 - 3,
-                    torch.rand((n, 3), generator=gen, device="cuda"),
-                    torch.ones((n,), dtype=torch.bool, device="cuda"))
-
-
-def insert_profile(frames: int) -> dict:
-    """One ``offset_map_insert`` at the path's shape (a full 2^21 map at
-    1 cm, ``frames`` x 478,632 points) under ``torch.profiler``: device time
-    by kernel with calls, and the gaps in which the device waited for the
-    host between two kernels of the insert."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    in_h, in_w = compute_da_resize(H, W, 518)
-    n = frames * in_h * in_w
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    vm = offset_map_insert(create_offset_map(1 << 21, 0.01),
-                           scattered_points(n, gen))
-    if int(offset_map_size(vm)) != 1 << 21:
-        raise AssertionError("insert_profile: the map is not full")
-    pts = scattered_points(n, gen)
-    ms = time_ms(lambda: offset_map_insert(vm, pts), runs=5, warmup=2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        offset_map_insert(vm, pts)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.key)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    by_name = {}
-    for start, end, name in spans:
-        row = by_name.setdefault(name[:90], {"name": name[:90], "calls": 0,
-                                             "ms": 0.0})
-        row["calls"] += 1
-        row["ms"] += (end - start) / 1e3
-    gaps = [{"us": b[0] - a[1], "before": b[2][:60]}
-            for a, b in zip(spans, spans[1:]) if b[0] > a[1]]
-    busy = sum(r["ms"] for r in by_name.values())
-    out = {"phase": "insert_profile", "rows": (1 << 21) + n,
-           "batch_points": n, "map_capacity": 1 << 21, "ms": ms,
-           "wall_ms_under_profiler": wall_ms, "device_ms": busy,
-           "first_to_last_kernel_ms": (spans[-1][1] - spans[0][0]) / 1e3,
-           "gap_ms": sum(g["us"] for g in gaps) / 1e3,
-           "largest_gaps": sorted(gaps, key=lambda g: -g["us"])[:5],
-           "kernels_by_device_ms": sorted(by_name.values(),
-                                          key=lambda r: -r["ms"])}
-    emit(out)
-    return out
-
-
 def ptxas_report(log: str) -> list:
     """Registers, spills and static shared memory of each kernel, from the
     output of ``nvcc -Xptxas -v``."""
@@ -5894,7 +5860,10 @@ def ptxas_report(log: str) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="build with -Xptxas -v and report each kernel's "
+                         "registers and spills; a spill or a serialised "
+                         "wgmma fails the run")
     args = ap.parse_args()
     if args.frames < 1:
         ap.error("--frames must be at least 1")
@@ -5942,29 +5911,27 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = []
-    for check in (check_attention, check_attention_boundmax,
-                  check_attention_bhsd, check_tail, check_scan,
-                  check_int8_linear, check_conv3x3, check_qk_prep):
-        rows = check(args.frames, gen)
-        summary.extend(rows if isinstance(rows, list) else [rows])
-        torch.cuda.empty_cache()
+    for _, checks in KERNEL_CHECKS.values():
+        for check in checks:
+            rows = check(args.frames, gen)
+            if check is check_offset_reduce:
+                reduce_entry = rows
+            else:
+                summary.extend(rows if isinstance(rows, list) else [rows])
+            torch.cuda.empty_cache()
     # row 3 carries both entries of the scan core: the model paths run the
     # fused reduce, fusion_cli_path the standalone scan
     scan_row = next(k for k in summary if k["name"] == "segscan")
-    scan_row["offset_reduce"] = check_offset_reduce(args.frames, gen)
+    scan_row["offset_reduce"] = reduce_entry
     scan_row["counters"] = ["offset_reduce", "segscan"]
-    torch.cuda.empty_cache()
     check_reference(gen)
     torch.cuda.empty_cache()
-    if args.profile:
-        insert_profile(args.frames)
-        torch.cuda.empty_cache()
 
-    run, main_depth = main_path(args.frames, args.profile)
+    run, main_depth = main_path(args.frames)
     torch.cuda.empty_cache()
-    qrun, quant_depth = quant_path(args.frames, args.profile, main_depth)
+    qrun, quant_depth = quant_path(args.frames, main_depth)
     torch.cuda.empty_cache()
-    brun = boundmax_path(args.frames, args.profile, main_depth)
+    brun = boundmax_path(args.frames, main_depth)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bruns = batch_path(main_depth, quant_depth)
