@@ -25,7 +25,11 @@ for bit against the unfused route (``torch.sort``, the standalone scan
 kernel, ``torch.nonzero`` compaction) on a full map, an overflowing one, an
 all-invalid batch, a saturating voxel and ``offset_map_merge``, with
 PyTorch's sync debug mode set to fail on any host sync inside an insert or a
-merge. Every kernel is run twice on one input and must repeat bit for bit,
+merge; the insert's merge of its sorted batch into the map's key-ordered
+rows (merge kernel) is held bit for bit, keys and permutation, against its
+plain version and ``torch.sort`` of all rows, at 2^26 map rows with the
+cells' 8- and 16-frame batches and on ties, empty rows, empty sides and
+ragged lengths. Every kernel is run twice on one input and must repeat bit for bit,
 is timed against its library call (where one exists) inside one interleaved
 loop (min / median / max on the ``kernels`` line; the int8 linear's quantise
 pass and product also apart), and the built library must report the tiling
@@ -239,7 +243,7 @@ import txr_torch.train as train
 from txr_torch.core.precision import kernel_autocast
 from txr_torch.core.intrinsics import CameraIntrinsics
 from txr_torch.core.types import PointSet
-from txr_torch.fusion.offset_map import (NCOLS, _insert_cols,
+from txr_torch.fusion.offset_map import (NCOLS, _insert_cols, _point_cols,
                                          _reduce_unfused, _sort_keys,
                                          create_offset_map, offset_map_insert,
                                          offset_map_merge, offset_map_points,
@@ -272,6 +276,12 @@ from txr_torch.ops.quant_fused import (STAGES, TILE_M, TILE_N,
                                        Int8LinearFused, int8_linear,
                                        int8_linear_reference)
 from txr_torch.ops.quant_fused import kernel_geometry as int8_geometry
+from txr_torch.ops.merge import ITEMS as MERGE_ITEMS
+from txr_torch.ops.merge import PART_THREADS as MERGE_PART_THREADS
+from txr_torch.ops.merge import THREADS as MERGE_THREADS
+from txr_torch.ops.merge import TILE as MERGE_TILE
+from txr_torch.ops.merge import (merge_geometry, merge_sorted,
+                                 merge_sorted_plain, row_keys)
 from txr_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                   compute_da_resize, resize_bicubic,
                                   resize_bilinear)
@@ -287,7 +297,7 @@ from txr_torch.ops.scan import THREADS as SCAN_THREADS
 from txr_torch.ops.scan import TILE as SCAN_TILE
 from txr_torch.ops.scan import (offset_reduce, scan_geometry,
                                 segmented_cumsum_cols)
-from txr_torch.ops.segment import segmented_cumsum
+from txr_torch.ops.segment import INT_MAX, segmented_cumsum
 from txr_torch.geometry.epipolar import essential_ransac
 from txr_torch.geometry.features import SIFTDetector, bgr_to_gray
 from txr_torch.ops.canny import canny
@@ -1058,6 +1068,146 @@ def check_offset_reduce(batch: int, gen: torch.Generator) -> dict:
             "gbytes_per_s": nbytes / ms / 1e6}
 
 
+def merge_case(case: str, khi: torch.Tensor, klo: torch.Tensor,
+               tkhi: torch.Tensor, tklo: torch.Tensor) -> tuple:
+    """The merge kernel on ``case``'s head (key-ordered int32 columns) and
+    tail (the batch's columns in no order) against the plain merge and
+    against ``torch.sort(stable=True)`` of all rows: the keys and the
+    permutation bit for bit. Returns the kernel's operands."""
+    tail_key, tail_perm = torch.sort(row_keys(tkhi, tklo), stable=True)
+    got = merge_sorted(khi, klo, tail_key, tail_perm)
+    plain = merge_sorted_plain(khi, klo, tail_key, tail_perm)
+    whole = torch.sort(row_keys(torch.cat([khi, tkhi]),
+                                torch.cat([klo, tklo])), stable=True)
+    require_repeatable("merge_sorted", lambda: torch.stack(
+        merge_sorted(khi, klo, tail_key, tail_perm)))
+    torch.cuda.synchronize()
+    same = {f"{part}_vs_{ref}": bool(torch.equal(g, w))
+            for ref, want in (("plain", plain), ("torch_sort", whole))
+            for part, g, w in zip(("key", "perm"), got, want)}
+    emit({"phase": "kernel_check", "kernel": "merge_sorted", "case": case,
+          "head_rows": khi.shape[0], "tail_rows": tkhi.shape[0],
+          "bit_equal": same,
+          "tolerance_reason": "a merge moves keys and indices and computes "
+                              "nothing: bit-equal",
+          "ok": all(same.values())})
+    if not all(same.values()):
+        raise AssertionError(f"merge_sorted/{case}: {same}")
+    return khi, klo, tail_key, tail_perm
+
+
+@torch.no_grad()
+def check_merge(batch: int, gen: torch.Generator) -> dict:
+    """The insert's merge of the sorted batch into the map's key-ordered
+    rows against the plain merge and the stable sort of all rows: heads of
+    2^26 rows from real inserts (a full map and one with empty rows) with
+    the batches of the DA2 (8 frames) and DA3 (16) cells, then ties of the
+    full key, empty rows, an empty tail, an all-invalid batch, no head, an
+    overflow and ragged lengths; timed at both cells' shapes against the
+    bytes it must move. Draws from its own generator, so that the shared
+    one's later checks see the numbers they saw before this check."""
+    del gen
+    require_geometry("merge_sorted", kernels.lib().txr_merge_geometry,
+                     (MERGE_TILE, MERGE_THREADS, MERGE_ITEMS,
+                      MERGE_PART_THREADS))
+    own = torch.Generator(device="cuda").manual_seed(23)
+    cap = 1 << 26
+    full = offset_map_insert(create_offset_map(cap, 0.01),
+                             scattered_points(100_000_000, own))
+    part = offset_map_insert(create_offset_map(cap, 0.01),
+                             scattered_points(30_000_000, own))
+    if int(offset_map_size(full)) != cap:
+        raise AssertionError("merge_sorted: the map should be full")
+    tails = {}
+    for f in (8, 16):
+        tails[f] = _point_cols(surface_points(f, 0.4), full.voxel_size)[:2]
+    timed = {}
+    for name, vm in (("full map", full), ("map with empty rows", part)):
+        for f, (tkhi, tklo) in tails.items():
+            ops = merge_case(f"{name} of 2^26 rows + {f} frames "
+                             f"({tkhi.shape[0]} rows)", vm.khi, vm.klo_x,
+                             tkhi, tklo)
+            if name == "full map":
+                timed[f] = ops
+    del part
+    torch.cuda.empty_cache()
+
+    # the edge cases, on a small map
+    def rows(n):
+        return _point_cols(scattered_points(n, own), full.voxel_size)[:2]
+
+    small = offset_map_insert(create_offset_map(4096, 0.01),
+                              scattered_points(3000, own))
+    pick = torch.randint(0, 3000, (500,), generator=own, device="cuda")
+    copies = (small.khi[pick], small.klo_x[pick])
+    nkhi, nklo = rows(700)
+    merge_case("ties of the full key with the head and within the tail",
+               small.khi, small.klo_x,
+               torch.cat([copies[0], nkhi, copies[0]]),
+               torch.cat([copies[1], nklo, copies[1]]))
+    dead = torch.full((1000,), INT_MAX, dtype=torch.int32, device="cuda")
+    empty = create_offset_map(4096, 0.01)
+    merge_case("empty rows on both sides", empty.khi, empty.klo_x, dead,
+               dead)
+    merge_case("empty map, valid batch: tiles of tail rows alone",
+               empty.khi, empty.klo_x, *rows(5000))
+    merge_case("empty tail", small.khi, small.klo_x, dead[:0], dead[:0])
+    merge_case("all-invalid batch", small.khi, small.klo_x, dead, dead)
+    merge_case("no head", dead[:0], dead[:0], *rows(5000))
+    full_small = offset_map_insert(small, scattered_points(3000, own))
+    merge_case("overflowing map of 4096 + 5000 new rows", full_small.khi,
+               full_small.klo_x, *rows(5000))
+    for nh, nt in ((1, 0), (0, 1), (1, 1), (MERGE_TILE - 1, 0),
+                   (MERGE_TILE - 3, 4), (MERGE_TILE + 1, 2),
+                   (3 * MERGE_TILE + 7, MERGE_TILE + 5)):
+        hk = offset_map_insert(create_offset_map(max(nh, 1), 0.01),
+                               scattered_points(nh, own)) if nh else None
+        tk = rows(nt)
+        merge_case(f"{nh} head rows, {nt} tail rows",
+                   hk.khi[:nh] if nh else dead[:0],
+                   hk.klo_x[:nh] if nh else dead[:0], *tk)
+
+    # timing at the cells' shapes; the whole sort is the library yardstick,
+    # the batch's sort the other half of the insert's new sort span
+    out = {}
+    for f, (khi, klo, tail_key, tail_perm) in timed.items():
+        nh, nt = khi.shape[0], tail_key.shape[0]
+        tkhi, tklo = tails[f]
+        all_khi, all_klo = torch.cat([khi, tkhi]), torch.cat([klo, tklo])
+        all_key = row_keys(all_khi, all_klo)
+        tail_raw = row_keys(tkhi, tklo)
+        cols = (all_khi, all_klo)
+        spread = time_spread({
+            "kernel": lambda: merge_sorted(khi, klo, tail_key, tail_perm),
+            "plain": lambda: merge_sorted_plain(khi, klo, tail_key,
+                                                tail_perm),
+            "whole_sort": lambda: torch.sort(all_key, stable=True),
+            "batch_sort": lambda: torch.sort(tail_raw, stable=True),
+            "sort_span_merged": lambda: _sort_keys(cols, nh),
+            "sort_span_whole": lambda: _sort_keys(cols)}, runs=10)
+        ms = spread["kernel"]["median"]
+        nbytes = 8 * nh + 16 * nt + 16 * (nh + nt)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        out[f] = {"shape": [nh, nt], "ms": ms,
+                  "ms_spread": spread["kernel"],
+                  "plain_ms": spread["plain"]["median"],
+                  "library_ms": spread["whole_sort"]["median"],
+                  "batch_sort_ms": spread["batch_sort"]["median"],
+                  "sort_span_ms": spread["sort_span_merged"]["median"],
+                  "sort_span_whole_ms": spread["sort_span_whole"]["median"],
+                  "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                  "gbytes_per_s": nbytes / ms / 1e6,
+                  "geometry": merge_geometry(nh, nt)}
+        del all_khi, all_klo, all_key, tail_raw, cols
+    da2, da3 = out[8], out[16]
+    return {"name": "merge_sorted", "route": "cuda",
+            "source": "txr_torch/csrc/merge.cu", "replaces": None,
+            **da2, "bound_by": "bytes",
+            "library_call": "torch.sort(stable=True) of the map's and the "
+                            "batch's keys together",
+            "da3_16_frames": da3}
+
+
 def bound(ops: float, peak_ops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of operations over
     their peak rate and bytes over the memory rate."""
@@ -1585,6 +1735,7 @@ KERNEL_CHECKS = {
     "tail": ("dpt_tail.cu", (check_tail,)),
     "scan": ("segscan.cu", (check_scan, check_offset_reduce)),
     "qk_prep": ("qk_prep.cu", (check_qk_prep,)),
+    "merge": ("merge.cu", (check_merge,)),
 }
 
 
@@ -1801,7 +1952,9 @@ def drive_path(phase: str, frames: int, expect: dict, version: str = "v2",
 
 
 # launches per step of main_path's and quant_path's configurations
-MAIN_EXPECT = {"attention": 24, "dpt_tail": 1, "offset_reduce": 1}
+# an insert: the batch merged into the map's rows, then the fused reduce
+INSERT_EXPECT = {"merge_sorted": 1, "offset_reduce": 1}
+MAIN_EXPECT = {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT}
 QUANT_EXPECT = {**MAIN_EXPECT, "int8_linear": 96, "conv3x3": 9}
 QUANT_ENV = {"TXR_FUSED_CONVS": "1", "TXR_FUSED_HEAD": "1"}
 
@@ -1865,7 +2018,7 @@ def boundmax_path(frames: int, main_depth: torch.Tensor) -> dict:
     out, _ = path_with_env(
         "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames,
         {"attention_boundmax": 24, "attention_key_norm": 24, "dpt_tail": 1,
-         "offset_reduce": 1}, main_depth)
+         **INSERT_EXPECT}, main_depth)
     out["score_mode"] = "boundmax"
     emit(out)
     return out
@@ -2199,20 +2352,20 @@ def depth_cli_path() -> dict:
 REGISTRY = (
     # version, encoder, quant, TXR_FUSED_CONVS, launches a step
     ("v2", "vitb", "none", False,
-     {"attention": 12, "dpt_tail": 1, "offset_reduce": 1}),
+     {"attention": 12, "dpt_tail": 1, **INSERT_EXPECT}),
     ("v2", "vitb", "int8p", True,
-     {"attention": 12, "dpt_tail": 1, "offset_reduce": 1,
+     {"attention": 12, "dpt_tail": 1, **INSERT_EXPECT,
       "int8_linear": 48, "conv3x3": 9}),
     ("v2", "vitg", "none", False,
-     {"attention": 40, "dpt_tail": 1, "offset_reduce": 1}),
+     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT}),
     ("v2", "vitg", "int8mix", False,
-     {"attention": 40, "dpt_tail": 1, "offset_reduce": 1,
+     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT,
       "int8_linear": 40}),
     ("v2", "vitg", "int8p", True,
-     {"attention": 40, "dpt_tail": 1, "offset_reduce": 1,
+     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT,
       "int8_linear": 160, "conv3x3": 9}),
     ("v2", "vitl", "int8mix", False,
-     {"attention": 24, "dpt_tail": 1, "offset_reduce": 1,
+     {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT,
       "int8_linear": 24}),
 )
 # the 3x3 conv kernel's sites in the head whose operands are held to the
@@ -2556,7 +2709,7 @@ def registry_path(frames: int) -> list:
 # cross-view layers whose qkv is checked, launches a step
 DA3_VIEWS = 16
 DA3_BLOCKS = (9, 23)
-DA3_EXPECT = {"attention": 24, "dpt_tail": 2, "offset_reduce": 1,
+DA3_EXPECT = {"attention": 24, "dpt_tail": 2, **INSERT_EXPECT,
               "qk_prep": 16}
 
 

@@ -74,7 +74,7 @@ def test_package_has_the_slice_modules():
     assert want <= set(MODULES)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} >= {
         "attention.cu", "dpt_tail.cu", "segscan.cu", "int8_linear.cu",
-        "conv3x3.cu"}
+        "conv3x3.cu", "merge.cu"}
     assert (PKG / "_native" / "txr_native.cpp").is_file()
 
 
@@ -281,7 +281,8 @@ def test_every_kernel_has_a_launch_count():
     assert set(k.launches) == {"attention", "attention_boundmax",
                                "attention_key_norm", "attention_bhsd",
                                "dpt_tail", "segscan", "offset_reduce",
-                               "int8_linear", "conv3x3", "qk_prep"}
+                               "int8_linear", "conv3x3", "qk_prep",
+                               "merge_sorted"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
@@ -290,7 +291,7 @@ def test_every_kernel_has_a_launch_count():
 @pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd",
                                   "attention_boundmax", "offset_map_insert",
                                   "voxel_downsample", "lsd_lines",
-                                  "qk_prep"])
+                                  "qk_prep", "merge_sorted"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -330,6 +331,12 @@ def test_cpu_tensors_never_reach_a_kernel(call):
         norm = torch.nn.LayerNorm(64).to(torch.bfloat16)
         qk_prep(torch.ones(1, 7, 3 * 2 * 64, dtype=torch.bfloat16), 2, norm,
                 norm, rope_tables(2, 3, 64, 100.0, "cpu"))
+    elif call == "merge_sorted":
+        from txr_torch.ops.merge import merge_sorted
+
+        key = torch.arange(3, dtype=torch.int64)
+        merge_sorted(torch.zeros(4, dtype=torch.int32),
+                     torch.zeros(4, dtype=torch.int32), key, key)
     else:
         q = torch.ones(1, 3, 4, 64)
         attention_flash(q, q, q)

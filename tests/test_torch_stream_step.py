@@ -20,6 +20,8 @@ generator, seeded 0 on both routes):
   second back-projection (the fused step moves the points instead);
 - a skip without ICP, fused then stepwise then fused (the resync), and the
   fused loop closure, each against the stepwise path;
+- the map the fused steps carry, per frame and batched, keeps its rows in
+  key order (the next insert sorts only its batch and merges it in);
 - the step reads nothing back to the host (no ``.item()``, ``nonzero`` or
   boolean-mask gather dispatched inside it, the insert's CPU reduce aside:
   on the card that is the fused-reduce kernel);
@@ -51,6 +53,7 @@ from txr_torch.geometry import appearance as tapp  # noqa: E402
 from txr_torch.geometry import icp as ticp  # noqa: E402
 from txr_torch.models.convert import from_txr_params  # noqa: E402
 from txr_torch.models.depth_anything import DepthAnythingModel  # noqa: E402
+from txr_torch.ops.merge import row_keys  # noqa: E402
 from txr_torch.pipelines import stream_step as tss  # noqa: E402
 from txr_torch.pipelines import streaming as tst  # noqa: E402
 
@@ -243,6 +246,20 @@ def test_fused_skip_without_icp(models):
     assert_same_stream(fused, step)
     for a, b in zip(map_arrays(fused.map), map_arrays(step.map)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("stream_batch", [1, 2])
+def test_fused_state_map_is_key_ordered(models, frames, stream_batch):
+    """The map the fused steps carry, per frame and batched, keeps its rows
+    in key order, which the next insert relies on (it sorts only its batch
+    and merges it into the map's rows: ``txr_torch/ops/merge.py``)."""
+    rec = port_run(models[1], frames, True, use_icp=False,
+                   stream_batch=stream_batch)
+    assert rec.route == ("fused_per_frame" if stream_batch == 1
+                         else "fused_batched")
+    assert int(pom.offset_map_size(rec.map)) > 100
+    key = row_keys(rec.map.khi, rec.map.klo_x)
+    assert bool((key[1:] >= key[:-1]).all())
 
 
 def test_fused_then_stepwise_then_fused(models, frames):

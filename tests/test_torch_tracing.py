@@ -4,7 +4,7 @@ spans.py``), on the CPU with a tiny model and map.
 
 With a profiler recording, one step (the model's forward, then the insert
 of the step's points) opens every ``txr.*`` span, nested as the calls
-are, and counts the rows sorted and the valid points; with none, no
+are, and counts the rows sorted, the rows merged and the valid points; with none, no
 profiler range is entered, no counter is kept and the insert runs no
 extra reduction. ``spans.reduce`` gives each span's calls and host time,
 and the ``txr.*`` ranges leave ``trace.reduce``'s device numbers as they
@@ -180,8 +180,10 @@ def test_insert_counters(inserts):
     got = profiling.counters()
     assert got["fusion.points_valid"] == sum(int(b.mask.sum())
                                              for b in batches)
-    assert got["fusion.rows_sorted"] == sum(CAPACITY + b.mask.shape[0]
+    # only the batch's rows are sorted; the map's are merged without a sort
+    assert got["fusion.rows_sorted"] == sum(b.mask.shape[0]
                                             for b in batches)
+    assert got["fusion.rows_merged"] == CAPACITY * inserts
     profiling.reset_counters()
     assert profiling.counters() == {}
 

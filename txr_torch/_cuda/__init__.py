@@ -38,7 +38,8 @@ NVCC_FLAGS = [
 launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
                             "attention_key_norm": 0, "attention_bhsd": 0,
                             "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
-                            "int8_linear": 0, "conv3x3": 0, "qk_prep": 0}
+                            "int8_linear": 0, "conv3x3": 0, "qk_prep": 0,
+                            "merge_sorted": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -221,6 +222,14 @@ def _declare(h: ctypes.CDLL) -> None:
     # stream)
     h.txr_qk_prep_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
     h.txr_qk_prep_fwd.restype = i
+    # (out[4]: rows a tile, threads a merge block, rows a thread, threads a
+    # partition block)
+    h.txr_merge_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_merge_geometry.restype = None
+    # (khi, klo_x, tail key, tail perm, n_head, n_tail, key out, perm out,
+    # splits, stream)
+    h.txr_merge_sorted_fwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p]
+    h.txr_merge_sorted_fwd.restype = i
 
 
 def check(err: int, kernel: str) -> None:

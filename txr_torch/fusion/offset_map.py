@@ -15,12 +15,16 @@ Weight saturates at 2047. Re-quantizing a stable mean is a fixed point of
 floor(mean * 2^bits) with midpoint dequantization, so untouched voxels do
 not drift across inserts.
 
-The insert concatenates the map's rows with the batch's, sorts, reduces
-each voxel segment with the SEGMENTED scan (``txr_torch/ops/scan.py``), so
-rounding scales with a segment's own sum and not with the map's total
-weight, and compacts the segment ends to the front. On the CPU the reduce
-after the sort is plain PyTorch (``_reduce_unfused``: gathers, the scan's
-plain version, ``torch.nonzero`` compaction). On the card it is one kernel
+The insert concatenates the map's rows with the batch's and orders them by
+key: the map's rows are in key order already (see ``OffsetVoxelMap``), so
+only the batch's rows are sorted, and merged into the map's
+(``txr_torch/ops/merge.py:merge_sorted``; on the card a kernel), which gives
+what a stable sort of all rows would give. It then reduces each voxel
+segment with the SEGMENTED scan (``txr_torch/ops/scan.py``), so rounding
+scales with a segment's own sum and not with the map's total weight, and
+compacts the segment ends to the front. On the CPU the reduce after the
+sort is plain PyTorch (``_reduce_unfused``: gathers, the scan's plain
+version, ``torch.nonzero`` compaction). On the card it is one kernel
 (``txr_torch.ops.scan.offset_reduce``) that unpacks the contributions, scans
 them and writes each voxel at its rank, with no host sync.
 
@@ -39,6 +43,7 @@ import torch
 from txr_torch.core.device import resolve_device
 from txr_torch.core.types import PointSet
 from txr_torch.fusion.keys import pack_keys, unpack_keys
+from txr_torch.ops.merge import merge_sorted, row_keys
 from txr_torch.ops.scan import offset_reduce, segmented_cumsum_cols
 from txr_torch.ops.segment import INT_MAX
 from txr_torch.utils.profiling import count, recording, span
@@ -97,6 +102,18 @@ def _unpack_rgb(u: torch.Tensor):
 
 
 class OffsetVoxelMap(NamedTuple):
+    """The map's packed rows, in key order: ascending by the int64 key
+    ``(khi << 32) | (klo_x + 2^31)`` (``txr_torch.ops.merge.row_keys``),
+    occupied voxels first and the empty rows, ``(INT_MAX, INT_MAX)``,
+    after them. An insert relies on it: it sorts only the batch and merges
+    it into the map's rows. Every producer keeps it: ``create_offset_map``
+    (all rows empty), ``offset_map_insert`` and ``offset_map_merge`` (each
+    voxel written at its rank among the sorted voxel segments, the rows
+    past the last left empty; within a voxel the x offset lies under the
+    key bits, so voxel order is key order), and the slices and stacks of
+    ``parallel/pipeline.py`` and ``pipelines/stream_step.py``, which are
+    made of maps from these three."""
+
     khi: torch.Tensor     # (C,) int32 packed key high bits (INT_MAX = empty)
     klo_x: torch.Tensor   # (C,) int32 key low 22 | x-offset u10 (sign-xored)
     yzw: torch.Tensor     # (C,) int32 y10|z10|w11
@@ -154,17 +171,20 @@ def offset_map_insert(vm: OffsetVoxelMap, points: PointSet) -> OffsetVoxelMap:
     As ``txr`` donates its map state, the returned map is the only valid one
     afterwards: the implementation is free to reuse the old map's buffers.
 
-    While a profiler records, it counts the rows it sorts
-    (``fusion.rows_sorted``) and the batch's valid points
-    (``fusion.points_valid``), neither with a host sync.
+    While a profiler records, it counts the rows it sorts, the batch's
+    (``fusion.rows_sorted``), the map's rows it merges them into without a
+    sort (``fusion.rows_merged``) and the batch's valid points
+    (``fusion.points_valid``), none with a host sync.
     """
+    cap = vm.khi.shape[0]
     with span("fusion.insert"):
         cols = _insert_cols(vm, points)
         if recording():
             with span("fusion.insert.count"):
-                count("fusion.rows_sorted", cols[0].shape[0])
+                count("fusion.rows_sorted", cols[0].shape[0] - cap)
+                count("fusion.rows_merged", cap)
                 count("fusion.points_valid", points.mask.sum())
-        return _reduce_packed(cols, vm.khi.shape[0], vm.voxel_size)
+        return _reduce_packed(cols, cap, vm.voxel_size)
 
 
 def _insert_cols(vm: OffsetVoxelMap, points: PointSet):
@@ -196,12 +216,19 @@ def offset_map_merge(a: OffsetVoxelMap, b: OffsetVoxelMap) -> OffsetVoxelMap:
     return _reduce_packed(cols, a.khi.shape[0], a.voxel_size)
 
 
-def _sort_keys(cols):
-    """One stable sort on the fused (khi, klo_x) int64 key: the sorted key
-    and its permutation; the payload follows by gather."""
+def _sort_keys(cols, head: int = 0):
+    """The stable sort of the rows by the fused (khi, klo_x) int64 key: the
+    sorted key and its permutation; the payload follows by gather. The
+    first ``head`` rows must be in key order already (a map's rows are):
+    only the rows after them are sorted, and merged with them; the result
+    is that of the stable sort of all rows."""
     with span("fusion.insert.sort"):
-        key = (cols[0].long() << 32) | (cols[1].long() + _BIAS)
-        return torch.sort(key, stable=True)
+        key = row_keys(cols[0][head:], cols[1][head:])
+        if head == 0:
+            return torch.sort(key, stable=True)
+        tail_key, tail_perm = torch.sort(key, stable=True)
+        return merge_sorted(cols[0][:head], cols[1][:head], tail_key,
+                            tail_perm)
 
 
 def _sorted_contributions(cols, sorted_keys=None):
@@ -243,9 +270,10 @@ def _sorted_contributions(cols, sorted_keys=None):
 
 
 def _reduce_packed(cols, cap: int, voxel_size) -> OffsetVoxelMap:
-    """Sort the packed rows and reduce each voxel segment to one map row:
-    the plain version on the CPU, the fused kernel on the card."""
-    sorted_keys = _sort_keys(cols)
+    """Sort the packed rows, of which the first ``cap`` are a map's (in key
+    order), and reduce each voxel segment to one map row: the plain version
+    on the CPU, the fused kernel on the card."""
+    sorted_keys = _sort_keys(cols, cap)
     with span("fusion.insert.reduce"):
         if cols[0].device.type == "cpu":
             return _reduce_unfused(cols, cap, voxel_size, sorted_keys)

@@ -27,8 +27,9 @@ resized position-embedding lookup the encoder reused or recomputed,
 ``models/vit.py``), ``models.attention_pairs_local`` /
 ``models.attention_pairs_crossview`` (host ints: the query-key pairs of
 each within-view and cross-view attention call, B S^2, ``models/vit.py``)
-and ``fusion.rows_sorted`` / ``fusion.points_valid``
-(the insert's rows sorted and the batch's mask summed on its device,
+and ``fusion.rows_sorted`` / ``fusion.rows_merged`` /
+``fusion.points_valid`` (the insert's rows sorted, the map's rows merged
+with them unsorted, and the batch's mask summed on its device,
 ``fusion/offset_map.py``).
 
 ``maybe_trace`` records a ``torch.profiler`` trace of the block (host and,
