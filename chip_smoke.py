@@ -84,6 +84,19 @@ bf16 tail. ``check_qk_prep`` holds the QK-norm / RoPE kernel alone at
 (16, 2443, 3072), an odd B x S and five heads, and times its launch, its
 wrapper and the plain chain.
 
+``vggt_path`` drives VGGT-1B (the benchmark's ``vggt-1b`` configuration and
+seeded weights, built by ``port_bench/archs/vggt.py``) at 32 views of 1080p
+a step at 294 x 518: 72 attention, 48 QK-norm / RoPE, 2 tail and 1 reduce
+launches a step; on the staged step the QK-norm / RoPE and attention
+kernels at the global blocks of pairs 11 and 23 (one sequence of 25,024
+tokens) and both heads' tails with VGGT's position term, as ``da3_path``
+does; then depth, points, both confidences and the pose encoding against
+the float32 reference (``port_bench/reference/vggt.py``) on the same input,
+each no further than twice the same reference at bfloat16 (rms).
+``check_tail`` holds the tail's position term (``position_term``, on a
+generator of its own) at VGGT's shape and at ragged ones, and times the
+kernel with and without it.
+
 ``sfm_path`` runs the fusion CLI's sparse path, which holds no kernel of
 the port (plain PyTorch on the card), at the CLI's operating point:
 
@@ -269,7 +282,7 @@ from txr_torch.ops.conv_stripe import (BLOCK_F, TILE_H, TILE_W,
                                        pack_weight)
 from txr_torch.ops.conv_stripe import kernel_geometry as conv_geometry
 from txr_torch.ops.dpt_tail import (fused_head_tail, head_tail_reference,
-                                    pack_params)
+                                    pack_params, position_term)
 from txr_torch.ops.dpt_tail import kernel_geometry as tail_geometry
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import (STAGES, TILE_M, TILE_N,
@@ -798,6 +811,7 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
     ms = spread["kernel"]["median"]
     flops = 2.0 * 9 * c * feat * out_h * out_w * batch
     nbytes = 2.0 * (x.numel() + w2.numel() + batch * out_h * out_w)
+    pos_case = check_tail_position_term(sms)
     return {"name": "dpt_tail", "route": "cuda",
             "source": "txr_torch/csrc/dpt_tail.cu",
             "replaces": "txr/ops/dpt_tail.py:114",
@@ -810,8 +824,71 @@ def check_tail(batch: int, gen: torch.Generator) -> dict:
             "library_call": "F.interpolate + F.conv2d (conv2 only, no ReLU "
                             "or conv3)",
             "tflops": flops / ms / 1e9,
+            "position_term": pos_case,
             "geometry": {k: list(v) if isinstance(v, tuple) else v
                          for k, v in geo.items()}}
+
+
+# VGGT's tail: 32 views, conv1's output at 8 x the 21 x 37 patch grid,
+# upsampled to 294 x 518, 2 and 4 outputs
+VGGT_TAIL = (32, 168, 296, 128, 294, 518)
+
+
+def check_tail_position_term(sms: int) -> dict:
+    """The tail with VGGT's position term (conv2 of the embedding, added
+    before the ReLU), on a generator of its own: against the plain version
+    in f32 at VGGT's shape with 2 and 4 outputs and at ragged ones; a zero
+    term bit-equal to no term; then the kernel with and without the term
+    timed in one interleaved loop at VGGT's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    feat = 32
+
+    def operands(b, hi, wi, ch, ho, wo, nout):
+        x = torch.randn((b, hi, wi, ch), generator=gen, device="cuda")
+        w2 = torch.randn((3, 3, ch, feat), generator=gen, device="cuda")
+        w2 = w2 * 0.05 * (128 / ch) ** 0.5
+        b2 = torch.randn((feat,), generator=gen, device="cuda") * 0.5
+        w3 = torch.randn((1, 1, feat, nout), generator=gen, device="cuda")
+        b3 = torch.randn((nout,), generator=gen, device="cuda")
+        args = [t.to(torch.bfloat16) for t in (x, w2, b2, w3, b3)]
+        pe = torch.randn((ho, wo, ch), generator=gen, device="cuda") * 0.1
+        return args, position_term(pe, args[1])
+
+    b, hin, win, c, out_h, out_w = VGGT_TAIL
+    cases = {f"VGGT N={n}": (b, hin, win, c, out_h, out_w, n) for n in (2, 4)}
+    cases.update({"ragged 5x7, N=1": (1, 4, 4, 128, 5, 7, 1),
+                  "out_w = tile width + 1, C=64": (2, 12, 20, 64, 21, 33, 4)})
+    rec = []
+    for label, (bb, hi, wi, ch, ho, wo, n) in cases.items():
+        require_tail_geometry((bb, hi, wi, ch, ho, wo), sms)
+        args, term = operands(bb, hi, wi, ch, ho, wo, n)
+        got = fused_head_tail(*args, ho, wo, None, term)
+        want = tail_exact((*args, ho, wo, None, term))
+        rec.append(compare("dpt_tail", f"position term {label}: "
+                           f"{hi}x{wi}x{ch}->{ho}x{wo}", got, want,
+                           **TAIL_TOL))
+        require_repeatable("dpt_tail", lambda: fused_head_tail(
+            *args, ho, wo, None, term))
+        if not torch.equal(fused_head_tail(*args, ho, wo),
+                           fused_head_tail(*args, ho, wo, None,
+                                           torch.zeros_like(term))):
+            raise AssertionError(f"dpt_tail: a zero position term changes "
+                                 f"the output ({label})")
+        del got, want
+    args, term = operands(b, hin, win, c, out_h, out_w, 2)
+    packed = pack_params(*args[1:])
+    spread = time_spread({
+        "kernel": lambda: fused_head_tail(*args, out_h, out_w, packed),
+        "kernel_position_term": lambda: fused_head_tail(
+            *args, out_h, out_w, packed, term)}, runs=10)
+    return {"shape": list(VGGT_TAIL), "checks": [
+                {k: r.get(k) for k in ("case", "max_abs_err", "err_rms")}
+                for r in rec],
+            "ms": spread["kernel_position_term"]["median"],
+            "ms_spread": spread["kernel_position_term"],
+            "ms_without_term": spread["kernel"]["median"],
+            "ms_without_term_spread": spread["kernel"],
+            "term_bytes": term.numel() * 4}
 
 
 def surface_points(batch: int, shift: float) -> PointSet:
@@ -1832,7 +1909,7 @@ def check_reference(gen: torch.Generator) -> None:
 
 def drive_path(phase: str, frames: int, expect: dict, version: str = "v2",
                encoder: str = "vitl", built=None, capture=None,
-               **model_kwargs) -> tuple:
+               model_hw=None, **model_kwargs) -> tuple:
     """Drive frames -> depth -> back-projection -> voxel map with the model
     ``build_model(version, encoder, **model_kwargs)`` builds from a CPU
     generator seeded with 0, or with ``built`` (``build_model``'s triple)
@@ -1841,8 +1918,10 @@ def drive_path(phase: str, frames: int, expect: dict, version: str = "v2",
     maps a kernel to its launches per step (asserted for every counter).
     ``capture`` (a ``Capture``) sees the staged step's model input and the
     operands the model hands its kernels in that step. Returns the phase's
-    line and the depth of the staged step (frames of seed 0)."""
-    in_h, in_w = compute_da_resize(H, W, 518)
+    line and the depth of the staged step (frames of seed 0). ``model_hw``:
+    the grid the frames are resized to (Depth Anything's 518 lower bound
+    where None)."""
+    in_h, in_w = model_hw or compute_da_resize(H, W, 518)
     t0 = time.perf_counter()
     build_s = None
     if built is None:
@@ -2476,7 +2555,7 @@ def tail_exact(args: tuple) -> torch.Tensor:
     x, w2, b2, w3, b3, out_h, out_w = args[:7]
     return head_tail_reference(x.float(), w2.to(torch.bfloat16).float(),
                                b2.float(), w3.float(), b3.float(), out_h,
-                               out_w)
+                               out_w, args[8] if len(args) > 8 else None)
 
 
 def tail_image_rounded(args: tuple) -> tuple:
@@ -2728,6 +2807,14 @@ def attention_reference_blocked(qkv: torch.Tensor, heads: int,
     return out.transpose(1, 2).reshape(b, s, heads * head_dim)
 
 
+def tail_hook(tails: dict, label: str, head, prefix: str):
+    """Keeps (head, prefix, conv1's input, conv1's output NHWC) of a tail
+    under ``label``: the unfused tail's input and the tail kernel's."""
+    return getattr(head, prefix + "1").register_forward_hook(
+        lambda mod, args, out: tails.__setitem__(label, (
+            head, prefix, args[0], out.permute(0, 2, 3, 1).contiguous())))
+
+
 class AnyviewCapture:
     """What a Depth Anything 3 any-view forward hands its kernels, for
     ``drive_path``'s staged step: the qkv of the cross-view blocks
@@ -2735,31 +2822,34 @@ class AnyviewCapture:
     QK-norm / RoPE), and for each head branch the input and output of its
     conv1 (the unfused tail's input and the tail kernel's, NHWC)."""
 
+    name = "da3"
+
     def __init__(self, blocks=DA3_BLOCKS):
         self.blocks = tuple(blocks)
-        self.head = None
         self.qkv = {}
         self.pre = {}
         self.tails = {}
 
+    def preps(self, model) -> dict:
+        """The QK-norm / RoPE modules of the captured blocks."""
+        return {i: getattr(model.encoder, f"block_{i}").attn.qk_prep
+                for i in self.blocks}
+
+    def tail_hooks(self, model) -> list:
+        return [tail_hook(self.tails, prefix, model.head, prefix)
+                for prefix in ("head_conv", "ray_conv")]
+
     @contextlib.contextmanager
     def during(self, model, x: torch.Tensor):
-        self.head = model.head
-        enc = model.encoder
         handles = []
-        for i in self.blocks:
-            prep = getattr(enc, f"block_{i}").attn.qk_prep
+        for i, prep in self.preps(model).items():
             # the kernel updates qkv in place: keep a copy of its input
             handles.append(prep.register_forward_pre_hook(
                 lambda mod, args, i=i: self.pre.__setitem__(
                     i, (mod, args[0].clone(), *args[1:]))))
             handles.append(prep.register_forward_hook(
                 lambda mod, args, out, i=i: self.qkv.__setitem__(i, out)))
-        for prefix in ("head_conv", "ray_conv"):
-            conv1 = getattr(model.head, prefix + "1")
-            handles.append(conv1.register_forward_hook(
-                lambda mod, args, out, prefix=prefix: self.tails.__setitem__(
-                    prefix, (args[0], out.permute(0, 2, 3, 1).contiguous()))))
+        handles += self.tail_hooks(model)
         try:
             yield
         finally:
@@ -2782,26 +2872,27 @@ def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
         args = (qkv, heads, mod.q_norm, mod.k_norm, tables)
         with torch.no_grad():
             rec.append(compare_qk_prep(
-                f"da3 block {i} qkv {list(qkv.shape)}", cap.qkv[i],
+                f"{cap.name} block {i} qkv {list(qkv.shape)}", cap.qkv[i],
                 qk_prep_plain(*args), *args))
     cap.pre.clear()
-    head = cap.head
     for i, qkv in sorted(cap.qkv.items()):
         one = qkv.view(1, -1, qkv.shape[-1])
         rec.append(compare(
-            "attention", f"da3 cross-view block {i} qkv {list(one.shape)} "
+            "attention", f"{cap.name} cross-view block {i} qkv "
+            f"{list(one.shape)} "
             f"after QK-norm and RoPE", fused_attention(one, HEADS, HEAD_DIM),
             attention_reference_blocked(one, HEADS, HEAD_DIM), **ATTN_TOL))
         torch.cuda.empty_cache()
-    for prefix, (y, x) in sorted(cap.tails.items()):
+    for label, (head, prefix, y, x) in sorted(cap.tails.items()):
         conv2, conv3 = (getattr(head, f"{prefix}{i}") for i in (2, 3))
         args = (x, conv2.weight.permute(2, 3, 1, 0), conv2.bias,
                 conv3.weight.permute(2, 3, 1, 0), conv3.bias, *out_hw,
-                head.tail_operands(prefix))
+                head.tail_operands(prefix),
+                head.tail_position_term(prefix, *out_hw))
         geo = require_tail_geometry((*x.shape, *out_hw), kernels.sm_count(0))
         got, want = fused_head_tail(*args), tail_exact(args)
         rec.append(compare(
-            "dpt_tail", f"da3 {prefix} {list(x.shape)}->{out_hw[0]}x"
+            "dpt_tail", f"{cap.name} {label} {list(x.shape)}->{out_hw[0]}x"
             f"{out_hw[1]}x{conv3.out_channels}, {geo['chunks']} chunks, "
             f"{geo['smem_bytes']} B of shared memory", got, want,
             **TAIL_TOL))
@@ -2811,7 +2902,7 @@ def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
         rec[-1]["unfused_err_rms"] = rms
         if rec[-1]["err_rms"] > rms:
             raise AssertionError(
-                f"dpt_tail/da3 {prefix}: the kernel's error rms "
+                f"dpt_tail/{cap.name} {label}: the kernel's error rms "
                 f"{rec[-1]['err_rms']} exceeds the unfused route's {rms}")
         del args, got, want, unfused
         torch.cuda.empty_cache()
@@ -2840,6 +2931,113 @@ def da3_path() -> dict:
                phase_s=time.perf_counter() - t_phase)
     emit(out)
     del built, cap, depth
+    return out
+
+
+# VGGT-1B (the benchmark's configuration): views a step (the cell's), the
+# pairs whose global block's qkv is checked, launches a step, and how far
+# the program's outputs may lie from the float32 reference against the
+# same reference at bfloat16 (rms error over rms error)
+VGGT_VIEWS = 32
+VGGT_PAIRS = (11, 23)
+VGGT_EXPECT = {"attention": 72, "dpt_tail": 2, **INSERT_EXPECT,
+               "qk_prep": 48}
+VGGT_ERR_RATIO = 2.0
+
+
+class VGGTCapture(AnyviewCapture):
+    """``AnyviewCapture`` of a VGGT forward: the global blocks of the pairs
+    ``pairs``, the depth and point heads' tails, and the model's input."""
+
+    name = "vggt"
+
+    def __init__(self, pairs=VGGT_PAIRS):
+        super().__init__(pairs)
+        self.x = None
+
+    def preps(self, model) -> dict:
+        return {i: getattr(model.aggregator, f"global_{i}").attn.qk_prep
+                for i in self.blocks}
+
+    def tail_hooks(self, model) -> list:
+        return [tail_hook(self.tails, name, getattr(model, name),
+                          "head_conv")
+                for name in ("depth_head", "point_head")]
+
+    @contextlib.contextmanager
+    def during(self, model, x: torch.Tensor):
+        self.x = x
+        with super().during(model, x):
+            yield
+
+
+def vggt_outputs(model, x: torch.Tensor, weights: dict, cfg: dict) -> list:
+    """Each output of the program's staged step (depth, points, both
+    confidences, the pose encoding) against the float32 reference on the
+    same normalised input, beside the same reference at bfloat16: the
+    program's rms error over the output's rms may be at most
+    VGGT_ERR_RATIO times the bfloat16 reference's."""
+    from port_bench.reference import vggt as vref
+
+    xin = x.permute(0, 3, 1, 2).float()
+    with torch.no_grad(), vref.exact_float32():
+        want = vref.outputs(xin, weights, cfg)
+        w16 = {k: v.to(torch.bfloat16) for k, v in weights.items()}
+        b16 = {k: v.float() for k, v in vref.outputs(
+            xin.to(torch.bfloat16), w16, cfg).items()}
+        del w16
+    rec = []
+    for name, ref in want.items():
+        got = model.outputs[name].float()
+        scale = ref.pow(2).mean().sqrt().item()
+        err = (got - ref).pow(2).mean().sqrt().item() / scale
+        err16 = (b16[name] - ref).pow(2).mean().sqrt().item() / scale
+        r = {"output": name, "shape": list(ref.shape), "rms": scale,
+             "err_rms_rel": err, "bf16_reference_err_rms_rel": err16,
+             "ratio": err / err16,
+             "max_abs_err": (got - ref).abs().max().item()}
+        rec.append(r)
+        if not err <= VGGT_ERR_RATIO * err16:
+            raise AssertionError(f"vggt_path: {name}'s error {err} is more "
+                                 f"than {VGGT_ERR_RATIO} x the bfloat16 "
+                                 f"reference's {err16}")
+    return rec
+
+
+def vggt_path() -> dict:
+    """``drive_path`` on VGGT-1B at published widths (the benchmark's
+    ``configs/vggt-1b.json`` and its seeded weights, built by
+    ``archs/vggt.py``), VGGT_VIEWS seeded 1080p frames a step at 294 x 518
+    as the views of one scene: VGGT_EXPECT's launches a step; then
+    ``check_anyview`` on the staged step (the ``qk_prep`` and attention
+    kernels at two global blocks, S = 32 x 782, and both heads' tails with
+    the position term) and ``vggt_outputs``."""
+    from port_bench.lib import spec, weights
+
+    t_phase = time.perf_counter()
+    cfg = spec.load_json(spec.BENCH_DIR / "configs" / "vggt-1b.json")
+    arch = spec.architecture(cfg)
+    w = weights.make_weights(arch, cfg, 2 ** 31 + 24, "cuda",
+                             torch.bfloat16)
+    model = arch.build(cfg, w, "cuda")
+    w = {k: v.float() for k, v in w.items()}
+    model_hw = arch.model_grid(cfg, (H, W))
+    cap = VGGTCapture()
+    built = (model, model.cfg.aggregator(), model.cfg.dpt())
+    out, depth = drive_path("vggt_path", VGGT_VIEWS, VGGT_EXPECT, "vggt",
+                            "vggt-1b", built=built, capture=cap,
+                            model_hw=model_hw)
+    checks = check_anyview(cap, tuple(depth.shape[1:]))
+    outputs = vggt_outputs(model, cap.x, w, cfg)
+    out.update(kernel_checks=checks, outputs=outputs,
+               tokens=arch.tokens(cfg, model_hw),
+               crossview_tokens=VGGT_VIEWS * arch.tokens(cfg, model_hw),
+               depth_quantiles=torch.quantile(
+                   depth.flatten()[::97], torch.tensor(
+                       [0.01, 0.1, 0.5, 0.9, 0.99], device="cuda")).tolist(),
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del model, built, cap, depth, w
     return out
 
 
@@ -6101,6 +6299,8 @@ def main() -> int:
     emit({"phase": "registry_path", "phase_s": time.perf_counter() - t0})
     darun = da3_path()
     torch.cuda.empty_cache()
+    vgrun = vggt_path()
+    torch.cuda.empty_cache()
     bf16_vs_f32(args.frames, crun["int8"]["depth_vs_bf16"])
     srun = sfm_path()
     torch.cuda.empty_cache()
@@ -6123,7 +6323,8 @@ def main() -> int:
             "odd_heads_path": orun, "depth_cli_path": crun,
             "v3_metric_cli_path": vrun,
             **{f"registry_path {r['label']}": r for r in rruns},
-            "da3_path": darun, "sfm_path": srun, "fusion_cli_path": frun,
+            "da3_path": darun, "vggt_path": vgrun, "sfm_path": srun,
+            "fusion_cli_path": frun,
             "enhanced_cli_path": erun, "stream_path": strun,
             "stream_fused_path": sfrun, "train_path": trun}
     # the path whose count stands in the kernels line: the first that runs it

@@ -295,3 +295,39 @@ def test_da2_forward_is_byte_for_byte_as_before(dtype, metric, fused_head):
     got = hashlib.sha256(
         d.contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
     assert got == DA2_SHA256[(dtype, metric, fused_head)]
+
+
+# Taken at the commit before VGGT's fields (registers, the antialiased
+# resize, LayerNorm eps per configuration, the special tokens' count in
+# the RoPE tables, the tail's position term): the bytes of the tiny
+# any-view model's four outputs on the CPU in one thread, through the
+# tail's plain version in float32 and bfloat16 and the unfused tail.
+DA3_SHA256 = {
+    (torch.float32, None):
+        "4dbe5f34e29e06baaa0ff061c0b08fdfcd7300a90b6dda0c743557e49cbfc9dd",
+    (torch.bfloat16, None):
+        "d2e24696f52aa44100c93604023ad2e183b46a240da039c101bc6b23f7f394c1",
+    (torch.float32, False):
+        "4dbe5f34e29e06baaa0ff061c0b08fdfcd7300a90b6dda0c743557e49cbfc9dd",
+}
+
+
+@pytest.mark.parametrize("dtype,fused_head", list(DA3_SHA256))
+def test_da3_forward_is_byte_for_byte_as_before(dtype, fused_head):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        w = weights.make_weights(ARCH, TINY, 2 ** 31 + 20, "cpu",
+                                 torch.float32)
+        x = torch.randn(VIEWS, H, W, 3,
+                        generator=torch.Generator().manual_seed(20))
+        m = port_model(TINY, w, fused_head=fused_head).to(dtype)
+        with torch.no_grad():
+            m(x.to(dtype))
+    finally:
+        torch.set_num_threads(threads)
+    h = hashlib.sha256()
+    for k in ("depth", "confidence", "rays", "ray_confidence"):
+        h.update(m.outputs[k].contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    assert h.hexdigest() == DA3_SHA256[(dtype, fused_head)]

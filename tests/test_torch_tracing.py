@@ -262,6 +262,97 @@ def test_anyview_spans_and_pair_counters(anyview, recording):
     assert got["models.attention_pairs_crossview"] == (FRAMES * s) ** 2
 
 
+# VGGT: the front (one block), two frame / global pairs, the camera head
+# (one block, one iteration), the depth and point heads; span -> (the
+# innermost txr. span around it, calls)
+VGGT_SPANS = {
+    "txr.models.forward": (None, 1),
+    "txr.models.encoder": ("txr.models.forward", 1),
+    "txr.models.aggregator": ("txr.models.forward", 1),
+    "txr.models.encoder.qk_prep": ("txr.models.aggregator", 4),
+    "txr.models.encoder.crossview": ("txr.models.aggregator", 2),
+    "txr.models.camera_head": ("txr.models.forward", 1),
+    "txr.models.head": ("txr.models.forward", 1),
+    "txr.models.head.points": ("txr.models.forward", 1),
+}
+
+
+@pytest.fixture(scope="module")
+def vggt():
+    from txr_torch.models.vggt import VGGT, VGGTConfig
+
+    torch.manual_seed(2)
+    cfg = VGGTConfig(hidden_size=32, num_heads=2, front_layers=1,
+                     pos_embed_size=4, pairs=2, out_layers=(0, 1, 1, 1),
+                     features=8, out_channels=(8, 8, 16, 16),
+                     camera_layers=1, camera_iterations=1)
+    return VGGT(cfg).eval()
+
+
+def test_vggt_spans_and_counters(vggt):
+    """Under a profiler a VGGT forward opens the aggregator, camera-head
+    and point-head spans beside the front's and the depth head's, with the
+    QK-norm / RoPE and cross-view spans inside the aggregator; it counts
+    the query-key pairs of each kind and each head's kept embeddings (four
+    projections, kept per width, and the tail's term a head: misses and
+    hits, then hits)."""
+    x = torch.rand(FRAMES, 28, 42, 3,
+                   generator=torch.Generator().manual_seed(6))
+    s = 5 + 2 * 3
+
+    def run():
+        with torch.no_grad():
+            vggt(x)
+            first = profiling.counters()
+            vggt(x)
+            return first
+
+    prof, first = profiled(run)
+    evs = [e for e in prof.events() if e.name.startswith("txr.")]
+    for name, (parent, calls) in VGGT_SPANS.items():
+        got = [e for e in evs if e.name == name]
+        assert len(got) == 2 * calls, name
+        assert all(txr_parent(e) == parent for e in got), name
+    attention = [txr_parent(e) for e in evs
+                 if e.name == "txr.models.encoder.attention"]
+    assert sorted(set(attention)) == ["txr.models.aggregator",
+                                      "txr.models.camera_head",
+                                      "txr.models.encoder"]
+    # per head: stages 0 and 1 (8 wide) share an embedding, as do 2 and
+    # 3 (16 wide), beside the tail's term
+    assert first["models.head_pos_embed_misses"] == 6
+    assert first["models.head_pos_embed_hits"] == 4
+    got = profiling.counters()
+    assert got["models.head_pos_embed_hits"] == 4 + 10
+    assert got["models.head_pos_embed_misses"] == 6
+    assert got["models.attention_pairs_crossview"] == 2 * 2 * (FRAMES * s) ** 2
+    assert got["models.qk_prep_plain_calls"] == 2 * 4
+    profiling.reset_counters()
+
+
+def test_trace_cost_sums_the_spans_a_step():
+    """``tools/trace_cost.py``'s summary: each ``txr.`` span's device ms
+    a step, the new spans among them, and the model's spans' share of the
+    forward's."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "trace_cost.py"
+    spec = importlib.util.spec_from_file_location("trace_cost", path)
+    tc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tc)
+    red = {"device_s": {"models.forward": 0.9, "models.aggregator": 0.6,
+                        "models.camera_head": 0.03, "models.head": 0.1,
+                        "models.head.points": 0.1, "models.encoder": 0.06,
+                        "fusion.insert": 0.03}}
+    got = tc.span_ms_per_step(red, steps=3)
+    assert got["models.aggregator"] == pytest.approx(200.0)
+    assert got["models.camera_head"] == pytest.approx(10.0)
+    assert got["models.head.points"] == pytest.approx(100.0 / 3)
+    assert list(got) == sorted(got, key=lambda k: -got[k])
+    assert tc.span_ms_per_step({"device_s": {}}, steps=3) == {}
+
+
 def test_a_tensor_counter_sums_on_its_device_and_reads_once():
     profiled(lambda: [profiling.count("t", torch.tensor(v))
                       for v in (3, 4, True)] + [profiling.count("h", 5)])

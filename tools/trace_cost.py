@@ -10,7 +10,10 @@ Prints a summary on standard error and one JSON line on standard output:
 ``probe_ms`` (host milliseconds to enqueue one step on an idle card, each
 block's probes), ``frames_per_s`` (each block's closed loop, synced at its
 edges), ``counter_share`` (device time of the counters' span over the
-insert's, from each traced block) and each traced block's span reduction.
+insert's, from each traced block), ``span_ms_per_step`` (each ``txr.``
+span's device milliseconds a step, from each traced block: the model's
+layers, VGGT's aggregator, camera head and point head among them) and
+each traced block's span reduction.
 Needs a CUDA card.
 """
 
@@ -25,6 +28,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+
+def span_ms_per_step(reduction: dict, steps: int) -> dict:
+    """Device milliseconds a step of each span of a ``spans.reduce``
+    result (a span counts what its nested spans launch), largest first."""
+    dev = reduction.get("device_s", {})
+    return {k: v * 1e3 / steps
+            for k, v in sorted(dev.items(), key=lambda kv: -kv[1])}
 
 
 def main(argv=None) -> int:
@@ -89,6 +100,8 @@ def main(argv=None) -> int:
             out["counters"] = spans.program_counters()
             out["spans"] = spans.reduce(prof)
             dev = out["spans"]["device_s"]
+            out["span_ms_per_step"] = span_ms_per_step(
+                out["spans"], args.probes + args.steps)
             if dev.get("fusion.insert"):
                 out["counter_share"] = (dev.get("fusion.insert.count", 0.0)
                                         / dev["fusion.insert"])
@@ -106,6 +119,8 @@ def main(argv=None) -> int:
                     "frames_per_s": [b["frames_per_s"] for b in bs]}
     res["counter_share"] = [b.get("counter_share") for b in blocks
                             if b["on"]]
+    res["span_ms_per_step"] = [b["span_ms_per_step"] for b in blocks
+                               if b["on"]]
     print(json.dumps(res), file=sys.stderr)
     res["blocks"] = blocks
     print(json.dumps(res), flush=True)

@@ -194,10 +194,10 @@ def _declare(h: ctypes.CDLL) -> None:
     # (x, wp, bias, out, B, H, W, C, F, relu_in, stream)
     h.txr_conv3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     h.txr_conv3x3_fwd.restype = i
-    # (x, w2p, b2, w3, b3, out, B, Hin, Win, C, out_h, out_w, nout, sms,
-    # stream)
-    h.txr_dpt_tail_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                   p]
+    # (x, w2p, b2, w3, b3, pos or null, out, B, Hin, Win, C, out_h, out_w,
+    # nout, sms, stream)
+    h.txr_dpt_tail_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   i, p]
     h.txr_dpt_tail_fwd.restype = i
     # (B, Hin, Win, C, out_h, out_w, sms, out[8]: tile height, tile width,
     # window rows, window columns, window buffers, smem bytes, grid, threads)

@@ -63,6 +63,12 @@
 //     F-wide dot with that output's row of w3 (read from global memory, so
 //     N costs no registers) and b3: a quad of lanes reduces a pixel and one
 //     lane stores it into the (B, out_h, out_w, N) output.
+//   * VGGT's heads add a position embedding to the upsampled image before
+//     conv2.  Through conv2's linearity that is a per-pixel term of F
+//     values (conv2 of the embedding, float32, the same for every image of
+//     the batch), made once by the host side; where one is given the
+//     epilogue adds it to the accumulators before the bias and ReLU.
+//     Without one the kernel is what it was, bit for bit.
 // Channels past C inside the last chunk arrive as zeros in window and
 // weights alike and are computed on.  No atomics: results repeat bit for
 // bit.
@@ -140,6 +146,7 @@ struct Params {
   const float* b2;
   const float* w3;  // (nout, F)
   const float* b3;  // (nout,)
+  const float* pos; // (out_h, out_w, F) added before the ReLU, or null
   bf16* out;        // (B, out_h, out_w, nout)
   int Hin, Win, out_h, out_w, nout;
   int nchunks, ntx, nty, ntiles;
@@ -355,6 +362,29 @@ dpt_tail_kernel(const __grid_constant__ CUtensorMap map_x,
       decode(tile, b, ty0, tx0);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
+        if (p.pos != nullptr) {
+          // the position term of this thread's two positions (zero where
+          // a position's output is dropped)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = 64 * (wg * MT + m) + 16 * warp + g + 8 * h;
+            const int row = f / PW;
+            const int col = f - row * PW;
+            const int oy = ty0 + row;
+            const int ox = tx0 + col;
+            const bool in = row < TH && col < TW && oy < p.out_h &&
+                            ox < p.out_w;
+            const float* q =
+                p.pos + (static_cast<int64_t>(oy) * p.out_w + ox) * F + 2 * t;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 v = in ? *reinterpret_cast<const float2*>(q + 8 * j)
+                                  : make_float2(0.f, 0.f);
+              acc[m][4 * j + 2 * h] += v.x;
+              acc[m][4 * j + 2 * h + 1] += v.y;
+            }
+          }
+        }
         // conv2's bias and ReLU in place: the next unit's first product
         // overwrites the accumulators
 #pragma unroll
@@ -527,15 +557,17 @@ extern "C" int txr_dpt_tail_geometry(int B, int Hin, int Win, int C, int out_h,
 
 // x: (B, Hin, Win, C) bf16 NHWC contiguous, C a multiple of 16;
 // w2p: (9, 32, C) bf16 (tap = 3*di + dj, feature, channel); b2: (32,) f32;
-// w3: (nout, 32) f32; b3: (nout,) f32; out: (B, out_h, out_w, nout) bf16.
-// All pointers 16-byte aligned; sms: the device's multiprocessor count (the
-// persistent grid's size at most).  Returns the launch's cudaError_t (0 on
+// w3: (nout, 32) f32; b3: (nout,) f32; pos: (out_h, out_w, 32) f32 added
+// to conv2's output before the ReLU, or null; out: (B, out_h, out_w, nout)
+// bf16.  All pointers 16-byte aligned; sms: the device's multiprocessor
+// count (the persistent grid's size at most).  Returns the launch's cudaError_t (0 on
 // success); cudaErrorInvalidValue when no tile fits the shared memory of a
 // block or nout < 1.
 extern "C" int txr_dpt_tail_fwd(const void* x, const void* w2p, const void* b2,
-                                const void* w3, const void* b3, void* out,
-                                int B, int Hin, int Win, int C, int out_h,
-                                int out_w, int nout, int sms, void* stream) {
+                                const void* w3, const void* b3,
+                                const void* pos, void* out, int B, int Hin,
+                                int Win, int C, int out_h, int out_w, int nout,
+                                int sms, void* stream) {
   Geometry g;
   if (nout < 1 || !choose_geometry(B, Hin, Win, C, out_h, out_w, sms, &g))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -565,6 +597,7 @@ extern "C" int txr_dpt_tail_fwd(const void* x, const void* w2p, const void* b2,
   p.b2 = static_cast<const float*>(b2);
   p.w3 = static_cast<const float*>(w3);
   p.b3 = static_cast<const float*>(b3);
+  p.pos = static_cast<const float*>(pos);
   p.out = static_cast<bf16*>(out);
   p.Hin = Hin;
   p.Win = Win;

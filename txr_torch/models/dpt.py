@@ -19,6 +19,13 @@ channels beside the depth branch's 2, each tail through the tail kernel
 exp(y0), its confidence 1 + exp(y1), rays (B, H, W, 6) and their
 confidence 1 + exp(y6), in float32.
 
+VGGT's heads (``models/vggt.py:VGGTHead``, not in ``txr``) subclass
+``DPTHead``: ``DPTConfig.special_tokens`` says how many tokens precede the
+patches, ``relu_skip`` makes the residual units add their branch to
+relu(x), and the head overrides the projection (``_project``), the
+unfused tail (``_tail``), the fused tail's position term
+(``tail_position_term``, None here) and the activations (``_outputs``).
+
 The public interface keeps ``txr``'s layout: hidden states (B, 1+ph*pw, D)
 in, depth (B, H, W) out. Inside, feature maps are NCHW tensors in
 ``channels_last`` memory, which is NHWC in memory, so the views between the
@@ -62,6 +69,12 @@ class DPTConfig:
     # Depth Anything 3's dual head: a depth branch of 2 channels and a ray
     # branch of 7 (metric is then not read)
     dual: bool = False
+    # tokens before the patches in each hidden state (the cls token;
+    # VGGT's camera token and 4 registers)
+    special_tokens: int = 1
+    # the residual units add their branch to relu(x), not to x (VGGT's
+    # units rectify their input in place)
+    relu_skip: bool = False
 
 # channels of the dual head's two outputs
 DEPTH_CHANNELS, RAY_CHANNELS = 2, 7
@@ -132,20 +145,27 @@ class PixelShuffleUp(nn.Module):
 
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, features: int):
+    """x + conv2(relu(conv1(relu(x)))); with ``relu_skip`` relu(x) + the
+    same branch (VGGT's units run ``nn.ReLU(inplace=True)`` on their
+    input, so their skip adds the rectified input)."""
+
+    def __init__(self, features: int, relu_skip: bool = False):
         super().__init__()
         self.conv1 = Conv3x3(features, features)
         self.conv2 = Conv3x3(features, features)
+        self.relu_skip = relu_skip
 
     def forward(self, x, fused: bool = False):
         if fused:
             # channels_last memory IS contiguous NHWC: both permutes are views
             h = self.conv1.fused(x.permute(0, 2, 3, 1), True)
             h = self.conv2.fused(h, True)
-            return x + h.permute(0, 3, 1, 2)
-        h = self.conv1(F.relu(x))
+            skip = F.relu(x) if self.relu_skip else x
+            return skip + h.permute(0, 3, 1, 2)
+        r = F.relu(x)
+        h = self.conv1(r)
         h = self.conv2(F.relu(h))
-        return x + h
+        return (r if self.relu_skip else x) + h
 
 
 class FeatureFusionBlock(nn.Module):
@@ -153,12 +173,12 @@ class FeatureFusionBlock(nn.Module):
     runs (``txr``'s tree holds no parameters for it either)."""
 
     def __init__(self, features: int, has_residual: bool = True,
-                 fused: bool = False):
+                 fused: bool = False, relu_skip: bool = False):
         super().__init__()
         self.fused = fused
         if has_residual:
-            self.rcu1 = ResidualConvUnit(features)
-        self.rcu2 = ResidualConvUnit(features)
+            self.rcu1 = ResidualConvUnit(features, relu_skip)
+        self.rcu2 = ResidualConvUnit(features, relu_skip)
         self.project = nn.Conv2d(features, features, 1)
 
     def forward(self, x, residual=None, size=None):
@@ -194,11 +214,15 @@ class DPTHead(nn.Module):
         self.resize_3 = nn.Conv2d(c.out_channels[3], c.out_channels[3], 3,
                                   stride=2, padding=1)
         fconv = bool(c.fused_convs)          # None / unset -> off
+        rs = c.relu_skip
         self.fusion_3 = FeatureFusionBlock(c.features, has_residual=False,
-                                           fused=fconv)
-        self.fusion_2 = FeatureFusionBlock(c.features, fused=fconv)
-        self.fusion_1 = FeatureFusionBlock(c.features, fused=fconv)
-        self.fusion_0 = FeatureFusionBlock(c.features, fused=fconv)
+                                           fused=fconv, relu_skip=rs)
+        self.fusion_2 = FeatureFusionBlock(c.features, fused=fconv,
+                                           relu_skip=rs)
+        self.fusion_1 = FeatureFusionBlock(c.features, fused=fconv,
+                                           relu_skip=rs)
+        self.fusion_0 = FeatureFusionBlock(c.features, fused=fconv,
+                                           relu_skip=rs)
         self.head_conv1 = Conv3x3(c.features, c.features // 2)
         self.head_conv2 = nn.Conv2d(c.features // 2, c.head_hidden, 3,
                                     padding=1)
@@ -220,6 +244,7 @@ class DPTHead(nn.Module):
             prefix: tuple(Derived(fn) for fn in (_tail_w2, _f32, _f32, _f32))
             for prefix in (("head_conv", "ray_conv") if c.dual
                            else ("head_conv",))}
+        self.span_name = "models.head"
 
     def tail_operands(self, prefix: str = "head_conv"
                       ) -> Tuple[torch.Tensor, ...]:
@@ -230,6 +255,13 @@ class DPTHead(nn.Module):
         return tuple(d.get(t) for d, t in zip(
             self._tail_ops[prefix],
             (conv2.weight, conv2.bias, conv3.weight, conv3.bias)))
+
+    def tail_position_term(self, prefix: str, out_h: int, out_w: int
+                           ) -> Optional[torch.Tensor]:
+        """The ``pos_term`` the tail kernel adds to the branch's conv2
+        output at an (out_h, out_w) map; None: no term (a VGGT head has
+        one)."""
+        return None
 
     def _fuse(self, feats, prefix: str) -> torch.Tensor:
         """Top-down fusion (refinenet4 -> refinenet1). Each block upsamples
@@ -267,12 +299,13 @@ class DPTHead(nn.Module):
         return fused_head_tail(
             x, conv2.weight.permute(2, 3, 1, 0), conv2.bias,
             conv3.weight.permute(2, 3, 1, 0), conv3.bias, out_h, out_w,
-            self.tail_operands(prefix) if x.is_cuda else None)
+            self.tail_operands(prefix) if x.is_cuda else None,
+            self.tail_position_term(prefix, out_h, out_w))
 
     def _branch(self, feats, fusion: str, prefix: str, out_h: int,
                 out_w: int):
-        """A dual head's branch: its fusion stack and tail, (B, out_h,
-        out_w, channels) in float32."""
+        """A branch of several output channels: its fusion stack and tail,
+        (B, out_h, out_w, channels) in float32."""
         y = self._fuse(feats, fusion)
         if self.cfg.fused_head is False:
             return self._tail(y, prefix, out_h, out_w).permute(
@@ -286,22 +319,43 @@ class DPTHead(nn.Module):
         return {"depth": y[..., 0].exp(), "confidence": 1 + y[..., 1].exp(),
                 "rays": r[..., :6], "ray_confidence": 1 + r[..., 6].exp()}
 
+    def _project(self, i: int, x: torch.Tensor, ph: int,
+                 pw: int) -> torch.Tensor:
+        """Stage ``i``'s projection of the patch tokens (B, ph*pw, D):
+        (B, out_channels[i], ph, pw)."""
+        x = x.reshape(x.shape[0], ph, pw, x.shape[-1]).permute(0, 3, 1, 2)
+        return getattr(self, f"project_{i}")(x)
+
+    def _outputs(self, feats, out_h: int, out_w: int):
+        """The fusion stack(s) and output tail(s) on the reassembled
+        features: depth (B, out_h, out_w), or the dual head's dict."""
+        c = self.cfg
+        if c.dual:
+            return self._dual(feats, out_h, out_w)
+        y = self._fuse(feats, "fusion_")
+        if c.fused_head is False:
+            y = self._tail(y, "head_conv", out_h, out_w)[:, 0]
+        else:
+            y = self._tail_fused(y, "head_conv", out_h, out_w)
+        if c.metric:
+            return torch.sigmoid(y) * c.max_depth
+        return F.relu(y)
+
     def forward(self, hidden_states: List[torch.Tensor], ph: int, pw: int,
                 patch_size: int = 14):
-        """hidden_states: 4 x (B, 1+ph*pw, D) from the encoder (cls first).
+        """hidden_states: 4 x (B, special_tokens + ph*pw, D) from the
+        encoder (the special tokens first).
 
-        Returns depth (B, ph*patch_size, pw*patch_size), or with ``dual``
-        the dict of the two branches' outputs.
+        Returns depth (B, ph*patch_size, pw*patch_size), or the dict of
+        the outputs (``dual``, a VGGT head).
         """
-        with span("models.head"):
-            c = self.cfg
+        c = self.cfg
+        with span(self.span_name):
             feats = []
-            # Reassemble: drop cls, reshape to maps, project, resize per stage.
+            # Reassemble: drop the special tokens, reshape to maps,
+            # project, resize per stage.
             for i, hs in enumerate(hidden_states):
-                b = hs.shape[0]
-                x = hs[:, 1:].reshape(b, ph, pw, hs.shape[-1]).permute(
-                    0, 3, 1, 2)
-                x = getattr(self, f"project_{i}")(x)
+                x = self._project(i, hs[:, c.special_tokens:], ph, pw)
                 if i == 0:      # 4x up
                     x = self.resize_0(x)
                 elif i == 1:    # 2x up
@@ -309,17 +363,4 @@ class DPTHead(nn.Module):
                 elif i == 3:    # 2x down
                     x = self.resize_3(x)
                 feats.append(getattr(self, f"scratch_{i}")(x))
-
-            out_h, out_w = ph * patch_size, pw * patch_size
-            if c.dual:
-                return self._dual(feats, out_h, out_w)
-            y = self._fuse(feats, "fusion_")
-
-            # Output head.
-            if c.fused_head is False:
-                y = self._tail(y, "head_conv", out_h, out_w)[:, 0]
-            else:
-                y = self._tail_fused(y, "head_conv", out_h, out_w)
-            if c.metric:
-                return torch.sigmoid(y) * c.max_depth
-            return F.relu(y)
+            return self._outputs(feats, ph * patch_size, pw * patch_size)

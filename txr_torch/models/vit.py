@@ -32,6 +32,14 @@ taken layer hands on the last within-view layer's output joined to its own
 (2 D channels), each after the final LayerNorm. None of this is in
 ``txr``.
 
+For VGGT (``models/vggt.py``; not in ``txr``) the same encoder is DINOv2
+with registers (``ViTConfig.num_registers``: learned tokens after the cls
+token, without position embedding, left out of the outputs) and resizes
+its position embedding with antialiasing (``pos_embed_antialias``); the
+aggregator's blocks are these blocks with LayerNorms of eps 1e-5
+(``norm_eps``), and so are the camera head's, 2048 wide with heads of
+128, built with ``use_flash=False`` (the kernels take heads of 64).
+
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
 is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
@@ -81,6 +89,15 @@ class ViTConfig:
     # view, q and k take QK-norm and 2-D RoPE, a camera token takes the cls
     # slot and each taken layer is joined to the last within-view output.
     anyview_start: int = -1
+    # DINOv2 with registers (``dinov2_vitl14_reg``, VGGT's front): this many
+    # learned tokens after the cls token, without position embedding, left
+    # out of the outputs; and the position embedding resized with
+    # antialiasing (DINOv2's ``interpolate_antialias``)
+    num_registers: int = 0
+    pos_embed_antialias: bool = False
+    # eps of every LayerNorm of the blocks, the final norm and QK-norm
+    # (DINOv2's 1e-6; VGGT's aggregator keeps ``nn.LayerNorm``'s 1e-5)
+    norm_eps: float = 1e-6
 
     @property
     def anyview(self) -> bool:
@@ -166,10 +183,10 @@ class QKPrep(nn.Module):
     ends; it counts ``models.qk_prep_kernel_calls`` or
     ``models.qk_prep_plain_calls``, one a call."""
 
-    def __init__(self, head_dim: int):
+    def __init__(self, head_dim: int, eps: float = 1e-6):
         super().__init__()
-        self.q_norm = nn.LayerNorm(head_dim, eps=1e-6)
-        self.k_norm = nn.LayerNorm(head_dim, eps=1e-6)
+        self.q_norm = nn.LayerNorm(head_dim, eps=eps)
+        self.k_norm = nn.LayerNorm(head_dim, eps=eps)
 
     def forward(self, qkv: torch.Tensor, heads: int, tables):
         """``tables``: ``rope_tables`` of the batch's patch grid."""
@@ -188,7 +205,7 @@ class Attention(nn.Module):
         self.qkv = dense(d, 3 * d)   # one fused matrix product
         self.proj = dense(d, d)
         self.crossview = cfg.crossview(layer)
-        self.qk_prep = (QKPrep(d // cfg.num_heads)
+        self.qk_prep = (QKPrep(d // cfg.num_heads, cfg.norm_eps)
                         if 0 <= cfg.anyview_start <= layer else None)
 
     def forward(self, x, kv_len: Optional[int] = None, rope=None):
@@ -227,9 +244,9 @@ class Block(nn.Module):
         d = cfg.hidden_size
         self.ls1 = nn.Parameter(torch.full((d,), float(cfg.layerscale_init)))
         self.ls2 = nn.Parameter(torch.full((d,), float(cfg.layerscale_init)))
-        self.norm1 = nn.LayerNorm(d, eps=1e-6)
+        self.norm1 = nn.LayerNorm(d, eps=cfg.norm_eps)
         self.attn = Attention(cfg, layer)
-        self.norm2 = nn.LayerNorm(d, eps=1e-6)
+        self.norm2 = nn.LayerNorm(d, eps=cfg.norm_eps)
         mlp_hidden = int(d * cfg.mlp_ratio)
         if cfg.use_swiglu:
             # DINOv2 rounds SwiGLU hidden to a multiple of 8 after 2/3 scaling.
@@ -243,14 +260,25 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x)) * self.ls2
 
 
-def _resize_pos_embed(pos: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+def _resize_pos_embed(pos: torch.Tensor, ph: int, pw: int,
+                      antialias: bool = False) -> torch.Tensor:
     """(1, 1 + g*g, d) position embedding -> (1, 1 + ph*pw, d): the patch
     rows resized bicubically (align_corners=False, through
-    ``resize_bicubic`` as ``txr`` does), the cls row kept first."""
+    ``resize_bicubic`` as ``txr`` does), the cls row kept first. With
+    ``antialias`` DINOv2-reg's resize: bicubic with antialiasing by size
+    (offset 0), in float32 and cast back, as DINOv2's
+    ``interpolate_pos_encoding`` does (it differs from the plain resize
+    where a side shrinks, VGGT's 37 -> 21 rows)."""
     d = pos.shape[-1]
     g = math.isqrt(pos.shape[1] - 1)
-    patch = resize_bicubic(pos[:, 1:].reshape(1, g, g, d), ph, pw,
-                           align_corners=False)
+    grid = pos[:, 1:].reshape(1, g, g, d)
+    if antialias:
+        patch = F.interpolate(grid.permute(0, 3, 1, 2).float(),
+                              size=(ph, pw), mode="bicubic",
+                              align_corners=False, antialias=True)
+        patch = patch.permute(0, 2, 3, 1).to(pos.dtype)
+    else:
+        patch = resize_bicubic(grid, ph, pw, align_corners=False)
     return torch.cat([pos[:, :1], patch.reshape(1, ph * pw, d)], dim=1)
 
 
@@ -268,12 +296,15 @@ class ViTEncoder(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + cfg.pos_embed_size ** 2, d))
+        if cfg.num_registers:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, cfg.num_registers, d))
         if cfg.anyview:
             # (1, 2, d): the reference view's token, then the others'
             self.camera_token = nn.Parameter(torch.zeros(1, 2, d))
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", Block(cfg, i))
-        self.norm = nn.LayerNorm(d, eps=1e-6)
+        self.norm = nn.LayerNorm(d, eps=cfg.norm_eps)
         # the resized embedding of the latest grid, per parameter state
         self._pos_resized = Derived(_resize_pos_embed)
 
@@ -295,9 +326,10 @@ class ViTEncoder(nn.Module):
         if (ph, pw) == (c.pos_embed_size, c.pos_embed_size):
             return pos
         with span("models.encoder.pos_embed"):
+            aa = c.pos_embed_antialias
             if torch.is_grad_enabled() and pos.requires_grad:
-                return _resize_pos_embed(pos, ph, pw)
-            out = self._pos_resized.get(pos, ph, pw)
+                return _resize_pos_embed(pos, ph, pw, aa)
+            out = self._pos_resized.get(pos, ph, pw, aa)
             count("models.pos_embed_misses" if self._pos_resized.computed
                   else "models.pos_embed_hits", 1)
             return out
@@ -319,6 +351,10 @@ class ViTEncoder(nn.Module):
             x = torch.cat([self.cls_token.expand(b, -1, -1).to(x.dtype), x],
                           dim=1)
             x = x + pos.to(x.dtype)
+            r = c.num_registers
+            if r:
+                x = torch.cat([x[:, :1], self.register_tokens.expand(
+                    b, -1, -1).to(x.dtype), x[:, 1:]], dim=1)
 
             rope = (rope_tables(ph, pw, c.hidden_size // c.num_heads,
                                 ROPE_BASE, x.device) if c.anyview else None)
@@ -337,6 +373,10 @@ class ViTEncoder(nn.Module):
                     collected[i] = (torch.cat([self.norm(local),
                                                self.norm(x)], dim=-1)
                                     if c.anyview else self.norm(x))
+                    if r:
+                        collected[i] = torch.cat(
+                            [collected[i][:, :1], collected[i][:, 1 + r:]],
+                            dim=1)
             # One output per requested index, duplicates allowed.
             return [collected[i] for i in c.out_layers]
 

@@ -33,6 +33,19 @@ Anything's heads have 1; Depth Anything 3's depth and ray branches 2 and
 kernel and the f32 vectors once, and ``DPTHead`` keeps them until the
 parameters change. One output channel is returned as (B, H, W).
 
+VGGT's heads add a fixed position embedding ``pe`` (H, W, C) to the
+upsampled activation before conv2. conv2 is linear, so conv2(up + pe) =
+conv2(up) + conv2(pe) with the same zero padding; the second term, (H, W,
+F) in float32 without conv2's bias, depends on the grid and the weights
+alone, so the head keeps it (``models/vggt.py:VGGTHead``) and the kernel
+adds it to its accumulators before the bias and ReLU (``pos_term``). That
+costs 128 bytes a pixel read (shared by the batch's images) and no
+arithmetic on the upsampled patch; adding ``pe`` itself inside the kernel
+would instead read 2 C bytes a pixel and add C values a pixel to the
+lerp's work, which is the kernel's bottleneck. Without the term the kernel
+is as before, bit for bit. The term takes its gradient like the other
+operands.
+
 ``fused_head_tail`` takes the plain version only for a tensor that lies on
 the CPU. For a CUDA tensor it launches the kernel or raises. Its gradient
 differentiates the plain version, as ``txr/models/dpt.py:_tail_fused`` does.
@@ -174,11 +187,15 @@ def tile_origin(i: int, geo: dict) -> tuple:
 
 def head_tail_reference(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                         w3: torch.Tensor, b3: torch.Tensor, out_h: int,
-                        out_w: int) -> torch.Tensor:
-    """Plain PyTorch version: resize -> conv2 -> relu -> conv3.
+                        out_w: int, pos_term: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version: resize -> conv2 (+ ``pos_term``) -> relu ->
+    conv3.
 
     x: (B, Hin, Win, C); w2: (3, 3, C, F); b2: (F,); w3: (1, 1, F, N), or
-    (F,) for N = 1; b3: (N,). Returns (B, out_h, out_w, N), or (B, out_h,
+    (F,) for N = 1; b3: (N,); ``pos_term``: None, or (out_h, out_w, F)
+    added to every image's conv2 output before the ReLU
+    (:func:`position_term`). Returns (B, out_h, out_w, N), or (B, out_h,
     out_w) for N = 1, in x's dtype.
     """
     dt = x.dtype
@@ -186,11 +203,23 @@ def head_tail_reference(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     y = resize_bilinear(x, out_h, out_w, align_corners=True)
     y = F.conv2d(y.permute(0, 3, 1, 2), w2.to(dt).permute(3, 2, 0, 1),
                  b2.to(dt), padding=1)
+    if pos_term is not None:
+        y = y + pos_term.permute(2, 0, 1).to(dt)
     y = F.relu(y)
     f = w3.reshape(-1, n).t().reshape(n, -1, 1, 1).to(dt)
     out = F.conv2d(y, f) + b3.reshape(1, n, 1, 1).to(dt)
     out = out[:, 0] if n == 1 else out.permute(0, 2, 3, 1)
     return out.to(dt)
+
+
+def position_term(pe: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """conv2 (3 x 3, zero padding, no bias) of a position embedding ``pe``
+    (H, W, C) added to the upsampled activation: (H, W, F) float32,
+    contiguous, the ``pos_term`` of :func:`fused_head_tail`. ``w2``: (3, 3,
+    C, F)."""
+    y = F.conv2d(pe.float().permute(2, 0, 1)[None],
+                 w2.float().permute(3, 2, 0, 1), padding=1)
+    return y[0].permute(1, 2, 0).contiguous()
 
 
 def pack_conv2(w2: torch.Tensor) -> torch.Tensor:
@@ -211,7 +240,8 @@ def pack_params(w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
               for t in (b2, w3.reshape(-1, n).t(), b3)))
 
 
-def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
+def _launch(x, packed, out_h: int, out_w: int, pos_term=None
+            ) -> torch.Tensor:
     b, hin, win, c = x.shape
     w2p, b2f, w3f, b3f = packed
     feat = w2p.shape[1]
@@ -236,12 +266,18 @@ def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
             f"b2 and w3 must hold {feat} and {nout * feat} values (b3's "
             f"{nout} outputs), got {tuple(b2f.shape)}, {tuple(w3f.shape)}, "
             f"{tuple(b3f.shape)}")
+    if pos_term is not None and pos_term.shape != (out_h, out_w, feat):
+        raise ValueError(
+            f"the position term must be ({out_h}, {out_w}, {feat}), got "
+            f"{tuple(pos_term.shape)}")
     dev = x.device
-    for name, ten, dt in (("x", x, torch.bfloat16),
-                          ("the packed conv2 kernel", w2p, torch.bfloat16),
-                          ("b2", b2f, torch.float32),
-                          ("w3", w3f, torch.float32),
-                          ("b3", b3f, torch.float32)):
+    operands = [("x", x, torch.bfloat16),
+                ("the packed conv2 kernel", w2p, torch.bfloat16),
+                ("b2", b2f, torch.float32), ("w3", w3f, torch.float32),
+                ("b3", b3f, torch.float32)]
+    if pos_term is not None:
+        operands.append(("the position term", pos_term, torch.float32))
+    for name, ten, dt in operands:
         if (ten.device != dev or ten.dtype != dt or not ten.is_contiguous()
                 or ten.data_ptr() % 16):
             raise ValueError(
@@ -253,8 +289,10 @@ def _launch(x, packed, out_h: int, out_w: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = _cuda.lib().txr_dpt_tail_fwd(
             x.data_ptr(), w2p.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
-            b3f.data_ptr(), out.data_ptr(), b, hin, win, c, out_h, out_w,
-            nout, sms, torch.cuda.current_stream().cuda_stream)
+            b3f.data_ptr(),
+            None if pos_term is None else pos_term.data_ptr(),
+            out.data_ptr(), b, hin, win, c, out_h, out_w, nout, sms,
+            torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, "dpt_tail")
     _cuda.launches["dpt_tail"] += 1
     return out[..., 0] if nout == 1 else out
@@ -264,29 +302,32 @@ class _FusedHeadTail(torch.autograd.Function):
     """Kernel forward; backward differentiates the plain version."""
 
     @staticmethod
-    def forward(ctx, x, w2, b2, w3, b3, out_h, out_w, packed):
-        ctx.save_for_backward(x, w2, b2, w3, b3)
+    def forward(ctx, x, w2, b2, w3, b3, out_h, out_w, packed, pos_term):
+        ctx.save_for_backward(x, w2, b2, w3, b3,
+                              *(() if pos_term is None else (pos_term,)))
         ctx.size = (out_h, out_w)
         if x.device.type == "cpu":
-            return head_tail_reference(x, w2, b2, w3, b3, out_h, out_w)
+            return head_tail_reference(x, w2, b2, w3, b3, out_h, out_w,
+                                       pos_term)
         if packed is None:
             packed = pack_params(*(t.to(x.device) for t in (w2, b2, w3, b3)))
-        return _launch(x, packed, out_h, out_w)
+        return _launch(x, packed, out_h, out_w, pos_term)
 
     @staticmethod
     def backward(ctx, grad):
         saved = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in saved]
-            y = head_tail_reference(*leaves, *ctx.size)
+            y = head_tail_reference(*leaves[:5], *ctx.size, *leaves[5:])
             grads = torch.autograd.grad(y, leaves, grad, allow_unused=True)
-        return (*grads, None, None, None)
+        return (*grads[:5], None, None, None, *(grads[5:] or (None,)))
 
 
 def fused_head_tail(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                     w3: torch.Tensor, b3: torch.Tensor, out_h: int,
                     out_w: int,
-                    packed: Optional[Tuple[torch.Tensor, ...]] = None
+                    packed: Optional[Tuple[torch.Tensor, ...]] = None,
+                    pos_term: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Fused resize(align_corners=True) + conv2(3x3, pad 1) + ReLU +
     conv3(1x1) for the DPT output head.
@@ -296,7 +337,10 @@ def fused_head_tail(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     (N,). Returns the N pre-activation outputs (B, out_h, out_w, N), or
     (B, out_h, out_w) for N = 1, in x's dtype. ``packed`` may carry
     ``pack_params(w2, b2, w3, b3)`` made earlier, which saves the repack on
-    a CUDA call.
+    a CUDA call. ``pos_term`` (out_h, out_w, F) float32, contiguous: added
+    to conv2's output of every image before the ReLU (VGGT's position
+    embedding through conv2, :func:`position_term`), and takes its
+    gradient.
     """
     if x.dim() != 4 or w2.dim() != 4 or w2.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(
@@ -308,4 +352,5 @@ def fused_head_tail(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
             f"{b3.numel()} outputs, got {tuple(w3.shape)}")
     if out_h < 1 or out_w < 1:
         raise ValueError("output size must be positive")
-    return _FusedHeadTail.apply(x, w2, b2, w3, b3, out_h, out_w, packed)
+    return _FusedHeadTail.apply(x, w2, b2, w3, b3, out_h, out_w, packed,
+                                pos_term)

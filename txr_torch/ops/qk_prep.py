@@ -37,19 +37,21 @@ ALIGN = 16                 # bytes: every operand is read 16 bytes at a time
 
 
 def rope_tables(ph: int, pw: int, head_dim: int, base: float,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos and sin, (1 + ph*pw, 1, head_dim) float32, of the 2-D rotary
-    embedding (the CroCo / VGGT convention): the first half of a head's
-    dimensions turns with the token's row, the second with its column, each
-    half at the frequencies ``base^(-2j / half)`` repeated over its two
-    quarters. The cls (camera) token sits at (0, 0), patch (r, c) at
-    (r + 1, c + 1)."""
+                device, specials: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin, (specials + ph*pw, 1, head_dim) float32, of the 2-D
+    rotary embedding (the CroCo / VGGT convention): the first half of a
+    head's dimensions turns with the token's row, the second with its
+    column, each half at the frequencies ``base^(-2j / half)`` repeated
+    over its two quarters. The ``specials`` tokens before the patches (Depth
+    Anything 3's camera token; VGGT's camera token and four registers) sit
+    at (0, 0), patch (r, c) at (r + 1, c + 1)."""
     half = head_dim // 2
     inv = base ** -(torch.arange(0, half, 2, device=device,
                                  dtype=torch.float32) / half)
     rows = torch.arange(ph, device=device, dtype=torch.float32) + 1
     cols = torch.arange(pw, device=device, dtype=torch.float32) + 1
-    zero = torch.zeros(1, device=device)
+    zero = torch.zeros(specials, device=device)
     r = torch.cat([zero, rows.repeat_interleave(pw)])[:, None] * inv
     c = torch.cat([zero, cols.repeat(ph)])[:, None] * inv
     angles = torch.cat([r, r, c, c], dim=1)[:, None]

@@ -9,7 +9,11 @@ Anything 3's any-view model also the QK-norm and RoPE
 ``models.encoder.qk_prep``, the cross-view attention calls
 ``models.encoder.crossview`` apart from the within-view
 ``models.encoder.attention``, and the head's ray branch
-``models.head.ray``) carry their ranges at no cost when nobody traces. Ranges nest as the calls do; they
+``models.head.ray``; in VGGT the front as ``models.encoder``, the
+aggregator ``models.aggregator`` around its blocks' attention, QK-norm /
+RoPE and cross-view spans, ``models.camera_head``, the depth head as
+``models.head`` and the point head ``models.head.points``) carry their
+ranges at no cost when nobody traces. Ranges nest as the calls do; they
 launch no device work, so a CUDA-graph capture is unaffected. A range is
 recorded as a host operation (``_RecordFunctionFast``), not as a user
 annotation (``record_function``): it adds no range to the device's
@@ -26,7 +30,10 @@ tensor per name, and read with one sync by ``counters()``;
 resized position-embedding lookup the encoder reused or recomputed,
 ``models/vit.py``), ``models.attention_pairs_local`` /
 ``models.attention_pairs_crossview`` (host ints: the query-key pairs of
-each within-view and cross-view attention call, B S^2, ``models/vit.py``)
+each within-view and cross-view attention call, B S^2, ``models/vit.py``),
+``models.head_pos_embed_hits`` / ``models.head_pos_embed_misses`` (host
+ints: each of VGGT's heads' kept position embeddings and tail terms
+reused or recomputed, ``models/dpt.py``)
 and ``fusion.rows_sorted`` / ``fusion.rows_merged`` /
 ``fusion.points_valid`` (the insert's rows sorted, the map's rows merged
 with them unsorted, and the batch's mask summed on its device,
