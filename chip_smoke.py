@@ -14,8 +14,9 @@ paths below give it, and then drives those paths at full width:
 
 Each kernel is held against its plain version at its path shapes and at
 ragged ones (attention: S = 2432, 256 and 77, ``kv_len`` 1 / 64 / 1984 /
-2000, score mode ``boundmax`` with its key-norm pre-pass, three stride
-patterns of the (B, H, S, D) entry; conv: one whole tile, an image smaller
+2000 with its masked keys bit for bit of no weight, a flat softmax beside
+the peaked one, S = 25,024 and 39,088, score mode ``boundmax`` with its
+key-norm pre-pass, three stride patterns of the (B, H, S, D) entry; conv: one whole tile, an image smaller
 than a tile, F = 136; int8 linear: one whole tile, M = 1 and 129, K = 16 and
 4096 + 16, N = 8, an all-zero row, values on rounding ties; tail: every head
 width, every resize ratio, an image smaller than a tile; scan: the insert's
@@ -547,17 +548,49 @@ SCAN_TOL = dict(atol=1e-3, rtol=1e-5,
                     "plain version's log-step tree)")
 
 
+# The long sequences of the multi-view cells: VGGT's global calls (32 views
+# of 782 tokens) and Depth Anything 3's cross-view calls (16 views of 2443)
+ATTN_LONG_S = (25024, 39088)
+
+
+def attention_qkv(gen: torch.Generator, batch: int, s: int, heads: int,
+                  q_std: float = 3.0) -> torch.Tensor:
+    """Random bf16 qkv of (batch, s, 3 * heads * 64) from ``gen``. q of
+    std 3, k of std 1: q.k has std 24 over D=64, the scaled logits std 3.
+    The softmax is peaked (a handful of the 2443 keys carry a row), so the
+    result depends on q and k and is of the order of v. q of std 0.1 makes
+    it flat: every key carries about as much as any other. The checks draw
+    their flat and long cases from a generator of their own, so that no
+    later check's draws depend on them."""
+    qkv = torch.randn((batch, s, 3 * heads * HEAD_DIM), generator=gen,
+                      device="cuda", dtype=torch.float32)
+    qkv[..., :heads * HEAD_DIM] *= q_std
+    return qkv.to(torch.bfloat16)
+
+
+def require_masked_keys_weigh_nothing(name: str, fn, qkv: torch.Tensor,
+                                      heads: int, kv: int) -> None:
+    """``fn(qkv)``, a launch with ``kv`` keys of the fused projection
+    ``qkv``, must not change by a bit when k and v of every key at or past
+    ``kv`` are replaced by 64 and 2^120: a masked key with any weight left
+    would move its rows by 2^120 times that weight."""
+    junk = qkv.clone()
+    hd = heads * HEAD_DIM
+    junk[:, kv:, hd:2 * hd] = 64.0
+    junk[:, kv:, 2 * hd:] = 2.0 ** 120
+    if not torch.equal(fn(junk), fn(qkv)):
+        raise AssertionError(f"{name}: kv_len={kv}: the masked keys moved "
+                             f"the result")
+    emit({"phase": "kernel_check", "kernel": name,
+          "case": f"kv_len={kv}: masked keys of k 64 and v 2^120 leave the "
+                  f"result bit-equal", "ok": True})
+
+
 def check_attention(batch: int, gen: torch.Generator) -> dict:
     in_h, in_w = compute_da_resize(H, W, 518)
     s = (in_h // 14) * (in_w // 14) + 1
     c = 3 * HEADS * HEAD_DIM
-    qkv = torch.randn((batch, s, c), generator=gen, device="cuda",
-                      dtype=torch.float32)
-    # q of std 3, k of std 1: q.k has std 24 over D=64, the scaled logits
-    # std 3. The softmax is peaked (a handful of the 2443 keys carry a row),
-    # so the result depends on q and k and is of the order of v.
-    qkv[..., :HEADS * HEAD_DIM] *= 3.0
-    qkv = qkv.to(torch.bfloat16)
+    qkv = attention_qkv(gen, batch, s, HEADS)
 
     geo = attention_geometry(batch, HEADS, s, s)
     require_geometry("attention", kernels.lib().txr_attention_geometry,
@@ -570,6 +603,12 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
     del want
     require_repeatable("attention",
                        lambda: fused_attention(qkv, HEADS, HEAD_DIM))
+    own = torch.Generator(device="cuda").manual_seed(25)
+    flat = attention_qkv(own, batch, s, HEADS, q_std=0.1)
+    compare("attention", f"flat softmax (q std 0.1) B={batch} S={s}",
+            fused_attention(flat, HEADS, HEAD_DIM),
+            attention_reference(flat, HEADS, HEAD_DIM), **ATTN_TOL)
+    del flat
     # ragged keys, which txr serves with its streaming kernel: one key, one
     # 64-row box, a whole number of key tiles less than S, and a ragged tile
     sub = qkv[:2].contiguous()
@@ -577,6 +616,20 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
         compare("attention", f"kv_len={kv} B=2 S={s}",
                 fused_attention(sub, HEADS, HEAD_DIM, kv),
                 attention_reference(sub, HEADS, HEAD_DIM, kv), **ATTN_TOL)
+        require_masked_keys_weigh_nothing(
+            "attention", lambda x: fused_attention(x, HEADS, HEAD_DIM, kv),
+            sub, HEADS, kv)
+    # the multi-view cells' long sequences, flat and peaked (kept to time)
+    long_qkv = {}
+    for sl in ATTN_LONG_S:
+        for label, q_std in (("flat", 0.1), ("peaked", 3.0)):
+            x = attention_qkv(own, 1, sl, HEADS, q_std)
+            compare("attention", f"{label} B=1 S={sl}",
+                    fused_attention(x, HEADS, HEAD_DIM),
+                    attention_reference_blocked(x, HEADS, HEAD_DIM),
+                    **ATTN_TOL)
+            torch.cuda.empty_cache()
+        long_qkv[sl] = x
     # a sequence that is a multiple of both tiles; two whole key tiles and
     # a ragged query block; a short sequence: one ragged tile, fewer query
     # rows than a block
@@ -601,6 +654,18 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
     nbytes = 2.0 * batch * s * (c + HEADS * HEAD_DIM)
     full = bound(flops, PEAK_BF16_FLOPS, nbytes)
     kv_ms = spread["kernel_kv"]["median"]
+    long_spread = time_spread(
+        {sl: (lambda x=x: fused_attention(x, HEADS, HEAD_DIM))
+         for sl, x in long_qkv.items()}, runs=6, warmup=1, inner=3)
+    long_rows = {}
+    for sl, t in long_spread.items():
+        long_flops = 4.0 * HEADS * sl * sl * HEAD_DIM
+        long_rows[f"(1, {sl}, {c})"] = {
+            "ms": t["median"], "ms_spread": t,
+            **bound(long_flops, PEAK_BF16_FLOPS, 2.0 * sl * (c + HEADS *
+                                                             HEAD_DIM)),
+            "tflops": long_flops / t["median"] / 1e9}
+    del long_qkv
     return {"name": "attention", "route": "cuda",
             "source": "txr_torch/csrc/attention.cu",
             "replaces": "txr/ops/attention.py:170",
@@ -625,6 +690,7 @@ def check_attention(batch: int, gen: torch.Generator) -> dict:
                 "library_call": "F.scaled_dot_product_attention on the keys "
                                 "and values sliced to kv_len",
                 "tflops": flops * kv / s / kv_ms / 1e9},
+            "long_sequences": long_rows,
             "geometry": {**geo, "grid": list(geo["grid"])}}
 
 
@@ -634,10 +700,7 @@ def check_attention_boundmax(batch: int, gen: torch.Generator) -> list:
     in_h, in_w = compute_da_resize(H, W, 518)
     s = (in_h // 14) * (in_w // 14) + 1
     c = 3 * HEADS * HEAD_DIM
-    qkv = torch.randn((batch, s, c), generator=gen, device="cuda",
-                      dtype=torch.float32)
-    qkv[..., :HEADS * HEAD_DIM] *= 3.0          # as in check_attention
-    qkv = qkv.to(torch.bfloat16)
+    qkv = attention_qkv(gen, batch, s, HEADS)
     q, k, v = split_heads(qkv, HEADS, HEAD_DIM)
 
     kn_err = compare("attention_key_norm", f"B={batch} H={HEADS} S={s}",
@@ -657,6 +720,12 @@ def check_attention_boundmax(batch: int, gen: torch.Generator) -> list:
                       qkv, HEADS, HEAD_DIM, score_mode="boundmax"),
                   **ATTN_TOL)["max_abs_err"]
     require_repeatable("attention_boundmax", lambda: bound_mode(qkv))
+    flat = attention_qkv(torch.Generator(device="cuda").manual_seed(25),
+                         batch, s, HEADS, q_std=0.1)
+    compare("attention_boundmax", f"flat softmax (q std 0.1) B={batch} S={s}",
+            bound_mode(flat), attention_reference(
+                flat, HEADS, HEAD_DIM, score_mode="boundmax"), **ATTN_TOL)
+    del flat
     # a multiple of both tiles, two whole key tiles and a ragged query
     # block, and one ragged tile with fewer query rows than a block: the
     # masked keys must add nothing to the row sums
@@ -1606,10 +1675,7 @@ def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
     in_h, in_w = compute_da_resize(H, W, 518)
     s = (in_h // 14) * (in_w // 14) + 1
     h, d = ODD_HEADS, HEAD_DIM
-    qkv = torch.randn((batch, s, 3 * h * d), generator=gen, device="cuda",
-                      dtype=torch.float32)
-    qkv[..., :h * d] *= 3.0          # peaked softmax, as in check_attention
-    qkv = qkv.to(torch.bfloat16)
+    qkv = attention_qkv(gen, batch, s, h)
     q, k, v = split_heads(qkv, h, d)          # strided views, no copy
     if q.is_contiguous():
         raise AssertionError("the head views should not be contiguous")
@@ -1618,10 +1684,21 @@ def check_attention_bhsd(batch: int, gen: torch.Generator) -> dict:
                   attention_flash(q, k, v), attention_plain(q, k, v),
                   **ATTN_TOL)["max_abs_err"]
     require_repeatable("attention_bhsd", lambda: attention_flash(q, k, v))
-    kv = 2000
-    compare("attention_bhsd", f"kv_len={kv} B=2 H={h} S={s}",
-            attention_flash(q[:2], k[:2], v[:2], kv),
-            attention_plain(q[:2], k[:2], v[:2], kv), **ATTN_TOL)
+    fq, fk, fv = split_heads(attention_qkv(
+        torch.Generator(device="cuda").manual_seed(25), batch, s, h,
+        q_std=0.1), h, d)
+    compare("attention_bhsd", f"flat softmax (q std 0.1) B={batch} H={h} "
+            f"S={s} views", attention_flash(fq, fk, fv),
+            attention_plain(fq, fk, fv), **ATTN_TOL)
+    del fq, fk, fv
+    for kv in (1, 64, 1984, 2000):
+        compare("attention_bhsd", f"kv_len={kv} B=2 H={h} S={s}",
+                attention_flash(q[:2], k[:2], v[:2], kv),
+                attention_plain(q[:2], k[:2], v[:2], kv), **ATTN_TOL)
+        require_masked_keys_weigh_nothing(
+            "attention_bhsd",
+            lambda x: attention_flash(*split_heads(x, h, d), kv),
+            qkv[:2].contiguous(), h, kv)
     compare("attention_bhsd", "S=77 B=1 contiguous",
             attention_flash(*(t[:1, :, :77].contiguous() for t in (q, k, v))),
             attention_plain(q[:1, :, :77], k[:1, :, :77], v[:1, :, :77]),

@@ -17,7 +17,13 @@
 // roughly 12*B*S*H*D bytes puts the work far above the bf16 ridge, so the
 // tensor cores are the limit; B*H*S^2 exponentials at 16 per clock per SM
 // take about as long as the products at their full rate, so the two must
-// overlap.
+// overlap.  Per 32 score elements of a warp scheduler (a quarter of an SM):
+// the tensor cores take 8 clocks (256 flop an element at 1,024 a clock),
+// the MUFU 8 (4 exponentials a clock), and the softmax issues about 5
+// instructions an element (the scale-and-shift FFMA, the exponential, the
+// row sum, the max, a share of the bf16 pack and the rescale).  At S in
+// the tens of thousands the card runs at its power limit, below its top
+// clock.
 //
 // Design.  A block owns 192 query rows of one (batch, head) and streams the
 // keys in tiles of 128 through an online softmax (running row max and row
@@ -53,6 +59,17 @@
 //     when kv_len < S and are masked in the scores of the last tile (the
 //     only one that can hold them); query rows past S are computed and not
 //     stored.  There is no padding of the sequence.
+//   * Exponentials.  exp2f, built without -ftz, wraps each MUFU.EX2 in a
+//     fix-up for results below 2^-126 (a compare and two predicated
+//     multiplies): three more instructions on about eight an element in
+//     the f32max kernel's SASS.  exp2_mufu issues ex2.approx.ftz.f32
+//     alone, so such a result is 0: a probability more than 2^126 below
+//     its row's max, which no bf16 sum can see (a masked key's is 0 either
+//     way).  The flush is this kernel's own: the build has no global -ftz,
+//     so no other kernel's arithmetic moves.  Taking a share of the
+//     exponentials off the MUFU onto the FMA pipe (a polynomial for 2^f)
+//     was slower at every share tried on this card: without the fix-up the
+//     MUFU does not set the pace.
 // Arithmetic: scores in f32, exp2 with the scale folded into one fma, the
 // probabilities rounded to bf16 only as the A operand, one rounding of the
 // result.  No atomics: results repeat bit for bit.
@@ -67,7 +84,10 @@
 // sum adds the f32 p and p v takes them rounded to bf16, as in f32max; the
 // running max, the two rescale exponentials and the accumulator rescale of
 // every step go.  It is the template flag BOUNDMAX; the f32max
-// instantiation is the code above, unchanged.
+// instantiation is the code above, unchanged.  A row whose every score lies
+// more than 126 below its shift keeps no probability at or above 2^-126 and
+// comes out 0 (exp2f's denormals gave it a few bits): far outside the ~83
+// nats of the bound within which the mode is softmax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +119,13 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the MUFU, without exp2f's fix-up: a result below 2^-126 is 0.
+__device__ __forceinline__ float exp2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 constexpr int KN_THREADS = 1024;  // key-norm kernel: 128 key rows a pass
@@ -303,10 +330,10 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
         for (int ni = 0; ni < 16; ++ni) {
-          s[4 * ni] = exp2f(fminf(score(ni, 0) - m0, 60.f));
-          s[4 * ni + 1] = exp2f(fminf(score(ni, 1) - m0, 60.f));
-          s[4 * ni + 2] = exp2f(fminf(score(ni, 2) - m1, 60.f));
-          s[4 * ni + 3] = exp2f(fminf(score(ni, 3) - m1, 60.f));
+          s[4 * ni] = exp2_mufu(fminf(score(ni, 0) - m0, 60.f));
+          s[4 * ni + 1] = exp2_mufu(fminf(score(ni, 1) - m0, 60.f));
+          s[4 * ni + 2] = exp2_mufu(fminf(score(ni, 2) - m1, 60.f));
+          s[4 * ni + 3] = exp2_mufu(fminf(score(ni, 3) - m1, 60.f));
           rs0 += s[4 * ni] + s[4 * ni + 1];
           rs1 += s[4 * ni + 2] + s[4 * ni + 3];
         }
@@ -327,8 +354,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const float mn0 = fmaxf(m0, mx0);
       const float mn1 = fmaxf(m1, mx1);
       // exp2 domain: p = 2^(s*c - max*c) with c = scale * log2(e)
-      alpha0 = exp2f((m0 - mn0) * scale_log2e);
-      alpha1 = exp2f((m1 - mn1) * scale_log2e);
+      alpha0 = exp2_mufu((m0 - mn0) * scale_log2e);
+      alpha1 = exp2_mufu((m1 - mn1) * scale_log2e);
       m0 = mn0;
       m1 = mn1;
       const float off0 = -mn0 * scale_log2e;
@@ -336,10 +363,10 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int ni = 0; ni < 16; ++ni) {
-        s[4 * ni] = exp2f(fmaf(score(ni, 0), scale_log2e, off0));
-        s[4 * ni + 1] = exp2f(fmaf(score(ni, 1), scale_log2e, off0));
-        s[4 * ni + 2] = exp2f(fmaf(score(ni, 2), scale_log2e, off1));
-        s[4 * ni + 3] = exp2f(fmaf(score(ni, 3), scale_log2e, off1));
+        s[4 * ni] = exp2_mufu(fmaf(score(ni, 0), scale_log2e, off0));
+        s[4 * ni + 1] = exp2_mufu(fmaf(score(ni, 1), scale_log2e, off0));
+        s[4 * ni + 2] = exp2_mufu(fmaf(score(ni, 2), scale_log2e, off1));
+        s[4 * ni + 3] = exp2_mufu(fmaf(score(ni, 3), scale_log2e, off1));
         rs0 += s[4 * ni] + s[4 * ni + 1];
         rs1 += s[4 * ni + 2] + s[4 * ni + 3];
       }

@@ -23,7 +23,9 @@ Contract (identical to ``txr``): qkv is ``(B, S, 3*H*D)`` component-major,
 so head ``h`` has q, k, v at columns ``h*D``, ``H*D + h*D`` and
 ``2*H*D + h*D``; the result is ``(B, S, H*D)``. Scores and softmax
 statistics are f32, the probabilities are rounded to v's dtype before the PV
-product, accumulation is f32.
+product, accumulation is f32. The kernel's exponentials give 0 for a result
+below 2^-126 (a probability that far below its row's max), which no bf16
+result can see.
 
 Score modes of the full-key route (``kv_len`` None or S), as ``txr``'s
 ``_fused_kernel_1pass``: ``"f32max"`` shifts each row by its max;
