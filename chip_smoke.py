@@ -98,6 +98,20 @@ each no further than twice the same reference at bfloat16 (rms).
 generator of its own) at VGGT's shape and at ragged ones, and times the
 kernel with and without it.
 
+``streamvggt_path`` drives StreamVGGT (the benchmark's ``streamvggt-1b``
+configuration and seeded weights, built by ``port_bench/archs/
+streamvggt.py``) at 128 keyframes of 1080p a step, one submap in 4 chunks
+of 32 through its key / value cache: 192 attention, 96 cached attention,
+192 QK-norm / RoPE, 8 tail and 1 reduce launches a step; on the staged step
+the cached entry point at three global calls (chunk 0 and chunk 3, up to
+100,096 keys) on their own operands against a float32 plain attention
+taken frame by frame, then every output against the float32 frame-causal
+reference (``port_bench/reference/streamvggt.py``), each no further than
+twice the same reference at bfloat16 (rms). ``check_cached_attention``
+holds the cached entry point alone at the cell's shapes, with an empty
+cache and at odd frame sizes and key counts, and times it at the four
+chunks of a submap.
+
 ``sfm_path`` runs the fusion CLI's sparse path, which holds no kernel of
 the port (plain PyTorch on the card), at the CLI's operating point:
 
@@ -209,7 +223,8 @@ Every line of standard output is one JSON object. The phases are ``device``,
 ``main_path``, ``quant_path``, ``boundmax_path``, ``odd_heads_path``,
 ``batch_path`` (a line a run, then its ``phase_s``), ``depth_cli_path``,
 ``v3_metric_cli_path``, ``registry_path`` (a line a configuration, then
-its ``phase_s``), ``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
+its ``phase_s``), ``da3_path``, ``vggt_path``, ``streamvggt_path``,
+``bf16_vs_f32``, ``sfm_path``, ``fusion_cli_path``,
 ``enhanced_cli_path``, ``stream_path``, ``stream_fused_path``,
 ``train_shift``, ``train_path``, ``script``
 (the whole run's wall),
@@ -274,6 +289,7 @@ from txr_torch.ops.attention import BLOCK_K as ATTN_BLOCK_K
 from txr_torch.ops.attention import BLOCK_Q as ATTN_BLOCK_Q
 from txr_torch.ops.attention import (attention_flash, attention_key_norm,
                                      attention_plain, attention_reference,
+                                     cached_attention, cached_kernel_plan,
                                      fused_attention, key_norm_plain,
                                      split_heads)
 from txr_torch.ops.attention import kernel_geometry as attention_geometry
@@ -1877,6 +1893,138 @@ def check_qk_prep(batch: int, gen: torch.Generator) -> dict:
             "geometry": require_qk_prep_operands(*args)}
 
 
+# The cached entry point at StreamVGGT's shapes: a chunk of 32 frames of 782
+# tokens against the cache of 0 to 3 chunks before it
+STREAM_FRAME_TOKENS = 782
+STREAM_CHUNK = 32
+STREAM_CHUNKS = 4
+
+
+def cached_operands(gen: torch.Generator, s: int, cached: int, heads: int,
+                    q_std: float = 3.0) -> tuple:
+    """A chunk's bf16 qkv (1, s, 3 * heads * 64), as ``attention_qkv``
+    draws it, and a cache of ``cached + s`` rows and 64 more (rows of k
+    then v, 2 * heads * 64): random earlier rows, then the chunk's k and
+    v, then rows past the keys the launch reads."""
+    qkv = attention_qkv(gen, 1, s, heads, q_std)
+    hd = heads * HEAD_DIM
+    kv = torch.randn((cached + s + 64, 2 * hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    kv[cached:cached + s] = qkv[0, :, hd:]
+    return qkv, kv
+
+
+def cached_reference(qkv: torch.Tensor, kv: torch.Tensor, heads: int,
+                     cached: int, frame_tokens: int, rows: int = 512
+                     ) -> torch.Tensor:
+    """``attention_plain`` (float32 products) of each block of query rows
+    of one frame against the keys up to that frame's end: the cached entry
+    point's mask as a key count, with no mask of its own."""
+    s = qkv.shape[1]
+    length = cached + s
+    q = split_heads(qkv, heads, HEAD_DIM)[0]
+    k, v = (kv[:length].view(1, length, 2, heads, HEAD_DIM)[:, :, i]
+            .transpose(1, 2) for i in range(2))
+    out = torch.empty((1, heads, s, HEAD_DIM), dtype=qkv.dtype,
+                      device=qkv.device)
+    for f0 in range(0, s, frame_tokens):
+        end = min(s, f0 + frame_tokens)
+        for i in range(f0, end, rows):
+            j = min(end, i + rows)
+            out[:, :, i:j] = attention_plain(q[:, :, i:j],
+                                             k[:, :, :cached + end],
+                                             v[:, :, :cached + end])
+    return out.transpose(1, 2).reshape(1, s, heads * HEAD_DIM)
+
+
+def cached_flops(s: int, cached: int, frame_tokens: int, heads: int
+                 ) -> float:
+    """Products of one launch under the mask: 4 D a kept query-key pair,
+    every head."""
+    plan = cached_kernel_plan(s, cached + s, cached, frame_tokens)
+    return 4.0 * heads * HEAD_DIM * plan["pairs"]
+
+
+@torch.no_grad()
+def check_cached_attention(batch: int, gen: torch.Generator) -> dict:
+    """The cached entry point against ``cached_reference`` in float32: at
+    StreamVGGT's shapes (25,024 queries against 25,024 to 100,096 keys),
+    peaked and flat; with an empty cache, frames of 77 and of 1 token
+    (causal), a frame of 129 tokens and caches of 333 and 1000 rows (key
+    counts of no multiple of 128); the keys past each row's limit and past
+    the launch's rows of no weight, bit for bit; repeated bit for bit;
+    then timed at the four chunks of a submap."""
+    s = STREAM_CHUNK * STREAM_FRAME_TOKENS
+    own = torch.Generator(device="cuda").manual_seed(26)
+    timed = {}
+    for c in range(STREAM_CHUNKS):
+        cached = c * s
+        for label, q_std in (("flat", 0.1), ("peaked", 3.0)):
+            qkv, kv = cached_operands(own, s, cached, HEADS, q_std)
+            compare("attention_cached", f"{label} S={s} cached={cached} "
+                    f"frame={STREAM_FRAME_TOKENS}",
+                    cached_attention(qkv, kv, HEADS, HEAD_DIM, cached,
+                                     STREAM_FRAME_TOKENS),
+                    cached_reference(qkv, kv, HEADS, cached,
+                                     STREAM_FRAME_TOKENS), **ATTN_TOL)
+            torch.cuda.empty_cache()
+        timed[c] = (qkv, kv)
+    for s_small, cached, frame in ((385, 0, 77), (300, 0, 1),
+                                   (387, 333, 129), (387, 1000, 129),
+                                   (77, 0, 77), (2 * 782, 782, 782)):
+        qkv, kv = cached_operands(gen, s_small, cached, HEADS)
+        run = lambda x, y: cached_attention(x, y, HEADS, HEAD_DIM, cached,
+                                            frame)
+        got = run(qkv, kv)
+        compare("attention_cached",
+                f"S={s_small} cached={cached} frame={frame}", got,
+                cached_reference(qkv, kv, HEADS, cached, frame), **ATTN_TOL)
+        # rows past the launch's keys, and each query frame's later
+        # frames in the chunk, weigh nothing: the first frame's rows stay
+        # bit for bit with k 64 and v 2^120 there
+        junk = kv.clone()
+        hd = HEADS * HEAD_DIM
+        junk[cached + frame:, :hd] = 64.0
+        junk[cached + frame:, hd:] = 2.0 ** 120
+        kept = run(qkv, junk)[:, :frame]
+        if not torch.equal(kept, got[:, :frame]):
+            raise AssertionError(f"attention_cached: S={s_small} cached="
+                                 f"{cached} frame={frame}: keys past the "
+                                 f"first frame moved its rows")
+        emit({"phase": "kernel_check", "kernel": "attention_cached",
+              "case": f"S={s_small} cached={cached} frame={frame}: keys "
+                      f"past the first frame of k 64 and v 2^120 leave its "
+                      f"rows bit-equal", "ok": True})
+        require_repeatable("attention_cached", lambda: run(qkv, kv))
+    spread = time_spread(
+        {c: (lambda x=x, c=c: cached_attention(
+            x[0], x[1], HEADS, HEAD_DIM, c * s, STREAM_FRAME_TOKENS))
+         for c, x in timed.items()}, runs=6, warmup=1, inner=3)
+    chunks = {}
+    for c, t in spread.items():
+        cached = c * s
+        ops = cached_flops(s, cached, STREAM_FRAME_TOKENS, HEADS)
+        plan = cached_kernel_plan(s, cached + s, cached,
+                                  STREAM_FRAME_TOKENS)
+        nbytes = 2.0 * s * HEADS * HEAD_DIM * 2 + 2.0 * (cached + s) * 2 * \
+            HEADS * HEAD_DIM
+        chunks[f"chunk {c}: (1, {s}) against {cached + s} keys"] = {
+            "ms": t["median"], "ms_spread": t,
+            **bound(ops, PEAK_BF16_FLOPS, nbytes),
+            "tflops": ops / t["median"] / 1e9,
+            "tile_pairs_over_pairs": plan["tile_pairs"] / plan["pairs"]}
+    del timed
+    last = spread[STREAM_CHUNKS - 1]["median"]
+    ops = cached_flops(s, (STREAM_CHUNKS - 1) * s, STREAM_FRAME_TOKENS,
+                       HEADS)
+    full = bound(ops, PEAK_BF16_FLOPS, 2.0 * 4 * s * HEADS * HEAD_DIM * 2)
+    return {"name": "attention_cached", "route": "cuda",
+            "source": "txr_torch/csrc/attention.cu",
+            "replaces": None, "shape": [1, s, 3 * HEADS * HEAD_DIM],
+            "ms": last, **full, "tflops": ops / last / 1e9,
+            "plain_ms": None, "library_ms": None, "chunks": chunks}
+
+
 # Each kernel's on-card checks by mode (``tools/kernel_dev.py <mode>``): the
 # CUDA source under txr_torch/csrc and the checks, each called as
 # ``check(batch, generator)``. check_offset_reduce returns the entry of the
@@ -1890,6 +2038,7 @@ KERNEL_CHECKS = {
     "scan": ("segscan.cu", (check_scan, check_offset_reduce)),
     "qk_prep": ("qk_prep.cu", (check_qk_prep,)),
     "merge": ("merge.cu", (check_merge,)),
+    "cached": ("attention.cu", (check_cached_attention,)),
 }
 
 
@@ -3048,13 +3197,16 @@ class VGGTCapture(AnyviewCapture):
             yield
 
 
-def vggt_outputs(model, x: torch.Tensor, weights: dict, cfg: dict) -> list:
+def vggt_outputs(model, x: torch.Tensor, weights: dict, cfg: dict,
+                 vref=None) -> list:
     """Each output of the program's staged step (depth, points, both
     confidences, the pose encoding) against the float32 reference on the
     same normalised input, beside the same reference at bfloat16: the
     program's rms error over the output's rms may be at most
-    VGGT_ERR_RATIO times the bfloat16 reference's."""
-    from port_bench.reference import vggt as vref
+    VGGT_ERR_RATIO times the bfloat16 reference's. ``vref``: the reference
+    module (``port_bench/reference/vggt.py`` where None)."""
+    if vref is None:
+        from port_bench.reference import vggt as vref
 
     xin = x.permute(0, 3, 1, 2).float()
     with torch.no_grad(), vref.exact_float32():
@@ -3109,6 +3261,106 @@ def vggt_path() -> dict:
     out.update(kernel_checks=checks, outputs=outputs,
                tokens=arch.tokens(cfg, model_hw),
                crossview_tokens=VGGT_VIEWS * arch.tokens(cfg, model_hw),
+               depth_quantiles=torch.quantile(
+                   depth.flatten()[::97], torch.tensor(
+                       [0.01, 0.1, 0.5, 0.9, 0.99], device="cuda")).tolist(),
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del model, built, cap, depth, w
+    return out
+
+
+# StreamVGGT: the benchmark's streamvggt-1b, one submap of 128 keyframes a
+# step in 4 chunks of 32; launches a step; the cached entry point's calls
+# whose operands are checked, as (chunk, pair)
+STREAM_FRAMES = STREAM_CHUNK * STREAM_CHUNKS
+STREAM_CHECKED = ((0, 23), (3, 11), (3, 23))
+STREAMVGGT_EXPECT = {"attention": STREAM_CHUNKS * 48,
+                     "attention_cached": STREAM_CHUNKS * 24,
+                     "qk_prep": STREAM_CHUNKS * 48,
+                     "dpt_tail": STREAM_CHUNKS * 2, **INSERT_EXPECT}
+
+
+class CachedCapture:
+    """Keeps the operands (the chunk's qkv after QK-norm and RoPE, the
+    cache's rows the call reads) and the result of the cached entry
+    point's calls STREAM_CHECKED of a StreamVGGT forward (``pairs`` a
+    chunk, in pair order), and the model's input."""
+
+    def __init__(self, pairs: int):
+        self.pairs = pairs
+        self.calls = {}
+        self.x = None
+
+    @contextlib.contextmanager
+    def during(self, model, x: torch.Tensor):
+        import txr_torch.models.vit as vit
+
+        self.x = x
+        real, n = vit.cached_attention, [0]
+
+        def keep(qkv, kv, heads, head_dim, cached, frame):
+            out = real(qkv, kv, heads, head_dim, cached, frame)
+            at = divmod(n[0], self.pairs)
+            n[0] += 1
+            if at in STREAM_CHECKED:
+                rows = kv[:cached + qkv.shape[1]].clone()
+                self.calls[at] = (qkv.clone(), rows, heads, cached, frame,
+                                  out.clone())
+            return out
+
+        vit.cached_attention = keep
+        try:
+            yield
+        finally:
+            vit.cached_attention = real
+
+
+def streamvggt_path() -> dict:
+    """``drive_path`` on StreamVGGT at published widths (the benchmark's
+    ``configs/streamvggt-1b.json`` and its seeded weights, built by
+    ``archs/streamvggt.py``): STREAM_FRAMES seeded 1080p frames a step at
+    294 x 518, one submap through the cache in chunks of STREAM_CHUNK, with
+    STREAMVGGT_EXPECT's launches a step; then the cached entry point on the
+    staged step's own operands at STREAM_CHECKED against
+    ``cached_reference`` in float32, and ``vggt_outputs`` against
+    ``port_bench/reference/streamvggt.py`` (the frame-causal forward of
+    the whole submap, no cache)."""
+    from port_bench.lib import spec, weights
+    from port_bench.reference import streamvggt as sref
+
+    t_phase = time.perf_counter()
+    cfg = spec.load_json(spec.BENCH_DIR / "configs" / "streamvggt-1b.json")
+    arch = spec.architecture(cfg)
+    w = weights.make_weights(arch, cfg, 2 ** 31 + 26, "cuda",
+                             torch.bfloat16)
+    model = arch.build(cfg, w, "cuda")
+    w = {k: v.float() for k, v in w.items()}
+    model_hw = arch.model_grid(cfg, (H, W))
+    cap = CachedCapture(model.cfg.pairs)
+    built = (model, model.cfg.aggregator(), model.cfg.dpt())
+    out, depth = drive_path("streamvggt_path", STREAM_FRAMES,
+                            STREAMVGGT_EXPECT, "streamvggt",
+                            "streamvggt-1b", built=built, capture=cap,
+                            model_hw=model_hw)
+    checks = []
+    for (c, pair), (qkv, kv, heads, cached, frame, got) in sorted(
+            cap.calls.items()):
+        s = qkv.shape[1]
+        checks.append(compare(
+            "attention_cached", f"streamvggt chunk {c} pair {pair}: "
+            f"(1, {s}) against {cached + s} keys", got,
+            cached_reference(qkv, kv, heads, cached, frame), **ATTN_TOL))
+    cap.calls.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outputs = vggt_outputs(model, cap.x, w, cfg, sref)
+    out.update(kernel_checks=checks, outputs=outputs,
+               reference_s=time.perf_counter() - t0,
+               cache_bytes=sum(s.numel() * s.element_size()
+                               for s in model.state.slabs),
+               tokens=arch.tokens(cfg, model_hw),
+               keys_last_chunk=STREAM_FRAMES * arch.tokens(cfg, model_hw),
                depth_quantiles=torch.quantile(
                    depth.flatten()[::97], torch.tensor(
                        [0.01, 0.1, 0.5, 0.9, 0.99], device="cuda")).tolist(),
@@ -6378,6 +6630,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     vgrun = vggt_path()
     torch.cuda.empty_cache()
+    svrun = streamvggt_path()
+    torch.cuda.empty_cache()
     bf16_vs_f32(args.frames, crun["int8"]["depth_vs_bf16"])
     srun = sfm_path()
     torch.cuda.empty_cache()
@@ -6400,7 +6654,8 @@ def main() -> int:
             "odd_heads_path": orun, "depth_cli_path": crun,
             "v3_metric_cli_path": vrun,
             **{f"registry_path {r['label']}": r for r in rruns},
-            "da3_path": darun, "vggt_path": vgrun, "sfm_path": srun,
+            "da3_path": darun, "vggt_path": vgrun,
+            "streamvggt_path": svrun, "sfm_path": srun,
             "fusion_cli_path": frun,
             "enhanced_cli_path": erun, "stream_path": strun,
             "stream_fused_path": sfrun, "train_path": trun}

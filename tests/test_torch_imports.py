@@ -280,9 +280,9 @@ def test_every_kernel_has_a_launch_count():
 
     assert set(k.launches) == {"attention", "attention_boundmax",
                                "attention_key_norm", "attention_bhsd",
-                               "dpt_tail", "segscan", "offset_reduce",
-                               "int8_linear", "conv3x3", "qk_prep",
-                               "merge_sorted"}
+                               "attention_cached", "dpt_tail", "segscan",
+                               "offset_reduce", "int8_linear", "conv3x3",
+                               "qk_prep", "merge_sorted"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
@@ -291,7 +291,8 @@ def test_every_kernel_has_a_launch_count():
 @pytest.mark.parametrize("call", ["int8_linear", "conv3x3", "attention_bhsd",
                                   "attention_boundmax", "offset_map_insert",
                                   "voxel_downsample", "lsd_lines",
-                                  "qk_prep", "merge_sorted"])
+                                  "qk_prep", "merge_sorted",
+                                  "attention_cached"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -331,6 +332,11 @@ def test_cpu_tensors_never_reach_a_kernel(call):
         norm = torch.nn.LayerNorm(64).to(torch.bfloat16)
         qk_prep(torch.ones(1, 7, 3 * 2 * 64, dtype=torch.bfloat16), 2, norm,
                 norm, rope_tables(2, 3, 64, 100.0, "cpu"))
+    elif call == "attention_cached":
+        from txr_torch.ops.attention import cached_attention
+
+        cached_attention(torch.ones(1, 3, 3 * 2 * 64),
+                         torch.ones(8, 2 * 2 * 64), 2, 64, 4, 1)
     elif call == "merge_sorted":
         from txr_torch.ops.merge import merge_sorted
 

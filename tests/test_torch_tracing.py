@@ -330,6 +330,81 @@ def test_vggt_spans_and_counters(vggt):
     profiling.reset_counters()
 
 
+# StreamVGGT: 4 frames in two chunks of 2 through the cache (the front of
+# one block, two pairs, the camera head of one block and one iteration);
+# span -> (the innermost txr. span around it, calls)
+STREAM_SPANS = {
+    "txr.models.forward": (None, 1),
+    "txr.models.stream.chunk": ("txr.models.forward", 2),
+    "txr.models.encoder": ("txr.models.stream.chunk", 2),
+    "txr.models.aggregator": ("txr.models.stream.chunk", 2),
+    "txr.models.aggregator.kv_append": ("txr.models.aggregator", 4),
+    "txr.models.encoder.cached": ("txr.models.aggregator", 4),
+    "txr.models.camera_head": ("txr.models.stream.chunk", 2),
+    "txr.models.head": ("txr.models.stream.chunk", 2),
+}
+
+
+@pytest.fixture(scope="module")
+def stream():
+    from txr_torch.models.vggt import StreamVGGT, StreamVGGTConfig
+
+    torch.manual_seed(3)
+    cfg = StreamVGGTConfig(hidden_size=32, num_heads=2, front_layers=1,
+                           pos_embed_size=4, pairs=2,
+                           out_layers=(0, 1, 1, 1), features=8,
+                           out_channels=(8, 8, 16, 16), camera_layers=1,
+                           camera_iterations=1, stream_chunk_frames=2,
+                           cache_frames=4)
+    return StreamVGGT(cfg).eval()
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_stream_spans_and_cache_counters(stream, recording):
+    """Under a profiler a StreamVGGT call opens a chunk span a chunk, the
+    cache's append and the cached attention inside the aggregator a global
+    layer a chunk, and counts the rows written and the query-key pairs the
+    frame-causal mask keeps, against cached rows and the chunk's own, as
+    the shapes give them; without one it enters no range and counts
+    nothing."""
+    x = torch.rand(4, 28, 42, 3, generator=torch.Generator().manual_seed(7))
+    s, layers = 5 + 2 * 3, 2
+
+    def run():
+        with torch.no_grad():
+            return stream(x)
+
+    if not recording:
+        CountingRange.real = profiling._Range
+        CountingRange.entered = 0
+        profiling.reset_counters()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(profiling, "_Range", CountingRange)
+            run()
+        assert CountingRange.entered == 0
+        assert profiling.counters() == {}
+        return
+    prof, _ = profiled(run)
+    evs = [e for e in prof.events() if e.name.startswith("txr.")]
+    for name, (parent, calls) in STREAM_SPANS.items():
+        got = [e for e in evs if e.name == name]
+        assert len(got) == calls, name
+        assert all(txr_parent(e) == parent for e in got), name
+    assert "txr.models.encoder.crossview" not in {e.name for e in evs}
+    got = profiling.counters()
+    # chunk 0: 2 frames against their own rows (3 frame pairs); chunk 1:
+    # the same, and its 2 s rows against the 2 s rows held
+    assert got["models.kv_rows_written"] == layers * 4 * s
+    assert got["models.kv_pairs_fresh"] == layers * 2 * 3 * s * s
+    assert got["models.kv_pairs_cached"] == layers * (2 * s) ** 2
+    assert got["models.attention_pairs_crossview"] == layers * 10 * s * s
+    # a chunk's front block and two frame blocks on 2 frames, and the
+    # camera trunk on 2 then 4 tokens, each against itself and earlier ones
+    assert got["models.attention_pairs_local"] == (
+        2 * (1 + layers) * 2 * s * s + (3 + 10))
+    profiling.reset_counters()
+
+
 def test_trace_cost_sums_the_spans_a_step():
     """``tools/trace_cost.py``'s summary: each ``txr.`` span's device ms
     a step, the new spans among them, and the model's spans' share of the

@@ -37,6 +37,7 @@ NVCC_FLAGS = [
 # kernel name -> launches made by its wrapper (see each ops module)
 launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
                             "attention_key_norm": 0, "attention_bhsd": 0,
+                            "attention_cached": 0,
                             "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
                             "int8_linear": 0, "conv3x3": 0, "qk_prep": 0,
                             "merge_sorted": 0}
@@ -169,6 +170,9 @@ def _declare(h: ctypes.CDLL) -> None:
     # (qkv, kn, B, S, H, stream)
     h.txr_attention_key_norm.argtypes = [p, p, i, i, i, p]
     h.txr_attention_key_norm.restype = i
+    # (qkv, kv, out, S, H, kv_len, cached, frame_tokens, scale, stream)
+    h.txr_attention_cached_fwd.argtypes = [p, p, p, i, i, i, i, i, f, p]
+    h.txr_attention_cached_fwd.restype = i
     # (out[4]: query rows per block, keys per tile, smem bytes, threads)
     h.txr_attention_geometry.argtypes = [ctypes.POINTER(i)]
     h.txr_attention_geometry.restype = None

@@ -88,6 +88,20 @@
 // more than 126 below its shift keeps no probability at or above 2^-126 and
 // comes out 0 (exp2f's denormals gave it a few bits): far outside the ~83
 // nats of the bound within which the mode is softmax.
+//
+// The cached entry point (txr_attention_cached_fwd, kernel
+// attention_cached_kernel; no TPU kernel: StreamVGGT is not in txr) serves
+// a streaming model's frame-causal global attention: the queries of a chunk
+// of frames, read from the chunk's fused projection, against a key / value
+// cache whose rows are k then v of every head (row stride 2*H*D), holding
+// `cached` rows of earlier frames and then the chunk's own.  A query row of
+// frame f sees every cached key and the chunk's keys up to the end of frame
+// f.  The block body is the same template with CAUSAL set: a block streams
+// only the key tiles up to its last row's limit, so the work follows the
+// mask to within a tile; frames (782 tokens in StreamVGGT) are multiples of
+// no tile, so a block may span two frames and the tiles from its first
+// row's limit on are masked per element against each row's own limit.  A
+// kernel of its own name, so that a trace tells it from the others.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,14 +204,29 @@ struct Strides {
   int64_t b, h, r;
 };
 
-template <bool BOUNDMAX>
-__global__ void __launch_bounds__(NTHREADS, 1)
-attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v,
-                     bf16* __restrict__ out, Strides so, int head_q,
-                     int head_k, int head_v, int S, int kv_len,
-                     float scale_log2e, const float* __restrict__ key_norm) {
+// The cached entry point's mask: query row r of the chunk, in frame
+// r / frame_tokens, sees every cached key and the chunk's rows up to the end
+// of its own frame, [0, cached + (r / frame_tokens + 1) * frame_tokens),
+// never more than kv_len.  Key 0 is always seen, so the online softmax
+// starts from a real max in tile 0.
+struct FrameCausal {
+  int cached, frame_tokens;
+  __device__ __forceinline__ int limit(int row, int kv_len) const {
+    return min(kv_len, cached + (row / frame_tokens + 1) * frame_tokens);
+  }
+};
+
+// One block of 192 query rows from q0 of (head blockIdx.y, batch blockIdx.z),
+// for both entry points.  CAUSAL (the cached entry point): the block streams
+// the key tiles up to its last row's limit, and masks each row against its
+// own limit from the first tile that holds a key past its first row's;
+// every tile before that is whole for all of its rows.
+template <bool BOUNDMAX, bool CAUSAL>
+__device__ __forceinline__ void attention_block(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, bf16* __restrict__ out, Strides so, int head_q,
+    int head_k, int head_v, int S, int kv_len, float scale_log2e,
+    const float* __restrict__ key_norm, int q0, FrameCausal fc) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -213,8 +242,10 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * BM;
-  const int ntiles = (kv_len + BN - 1) / BN;
+  const int ntiles =
+      CAUSAL ? (fc.limit(min(q0 + BM, S) - 1, kv_len) + BN - 1) / BN
+             : (kv_len + BN - 1) / BN;
+  const int first_masked = CAUSAL ? fc.limit(q0, kv_len) / BN : ntiles - 1;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -308,6 +339,14 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
 
+    // the keys rows g and g + 8 of this thread see (CAUSAL)
+    int lim0 = kv_len, lim1 = kv_len;
+    if constexpr (CAUSAL) {
+      const int r0 = q0 + wg * 64 + warp * 16 + g;
+      lim0 = fc.limit(r0, kv_len);
+      lim1 = fc.limit(r0 + 8, kv_len);
+    }
+
     // Software pipeline over the key tiles: step j starts the scores of
     // tile j and, right behind them, p v of tile j - 1, and runs the
     // softmax of tile j while p v of tile j - 1 (and the other warpgroups'
@@ -317,12 +356,17 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     float alpha0, alpha1;
 
     // Online softmax of the tile in `s`, in place; MASK for the tile that
-    // holds kv_len.
+    // holds kv_len (CAUSAL: a tile that holds a row's limit).
     auto softmax = [&](auto mask, int j) {
       constexpr bool MASK = decltype(mask)::value;
       const int key0 = j * BN + t * 2;
       auto score = [&](int ni, int c) {
-        if (MASK && key0 + ni * 8 + (c & 1) >= kv_len) return NEG_BIG;
+        if constexpr (CAUSAL) {
+          if (MASK && key0 + ni * 8 + (c & 1) >= (c < 2 ? lim0 : lim1))
+            return NEG_BIG;
+        } else {
+          if (MASK && key0 + ni * 8 + (c & 1) >= kv_len) return NEG_BIG;
+        }
         return s[4 * ni + c];
       };
       if constexpr (BOUNDMAX) {
@@ -374,7 +418,9 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       l1 = l1 * alpha1 + rs1;
     };
     auto softmax_tile = [&](int j) {
-      if (j == ntiles - 1)  // the only tile that can hold keys >= kv_len
+      // the only tile that can hold keys >= kv_len; CAUSAL, those that can
+      // hold a row's limit
+      if (CAUSAL ? j >= first_masked : j == ntiles - 1)
         softmax(std::true_type{}, j);
       else
         softmax(std::false_type{}, j);
@@ -480,6 +526,37 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+template <bool BOUNDMAX>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     bf16* __restrict__ out, Strides so, int head_q,
+                     int head_k, int head_v, int S, int kv_len,
+                     float scale_log2e, const float* __restrict__ key_norm) {
+  attention_block<BOUNDMAX, false>(map_q, map_k, map_v, out, so, head_q,
+                                   head_k, head_v, S, kv_len, scale_log2e,
+                                   key_norm, blockIdx.x * BM,
+                                   FrameCausal{0, 1});
+}
+
+// The cached entry point, a kernel of its own name: q from the chunk's fused
+// projection (heads 0 ... H - 1 of map_q), k and v from the layer's cache
+// (heads 0 ... H - 1 and H ... 2H - 1 of map_kv, kv_len rows), under
+// FrameCausal's mask.  Query blocks run heaviest first (the last frames see
+// the most keys), so that the grid's tail is a light block.
+__global__ void __launch_bounds__(NTHREADS, 1)
+attention_cached_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_kv,
+                        bf16* __restrict__ out, Strides so, int H, int S,
+                        int kv_len, int cached, int frame_tokens,
+                        float scale_log2e) {
+  attention_block<false, true>(map_q, map_kv, map_kv, out, so, 0, 0, H, S,
+                               kv_len, scale_log2e, nullptr,
+                               (gridDim.x - 1 - blockIdx.x) * BM,
+                               FrameCausal{cached, frame_tokens});
+}
+
 // Tensor map over one operand seen as (D, S, heads, B), innermost first,
 // with a (64, 64, 1, 1) box.  Strides in elements.
 int make_map(CUtensorMap* map, const void* ptr, int S, int heads, int B,
@@ -578,4 +655,39 @@ extern "C" int txr_attention_bhsd_fwd(const void* q, const void* k,
   const Strides so = {strides[9], strides[10], strides[11]};
   return launch<false>(maps[0], maps[1], maps[2], static_cast<bf16*>(out), so,
                        0, 0, 0, B, S, H, kv_len, scale, nullptr, stream);
+}
+
+// The cached entry point.  qkv: (S, 3*H*64) bf16 contiguous, 16-byte
+// aligned, the chunk's fused projection (its q is read); kv: rows of 2*H*64
+// bf16 (k of every head, then v), contiguous and 16-byte aligned, the
+// layer's cache, of which the first kv_len rows are read; out: (S, H*64).
+// Query row r attends to keys [0, min(kv_len, cached + (r / frame_tokens +
+// 1) * frame_tokens)).  1 <= frame_tokens, 0 <= cached, 1 <= kv_len.
+// Returns a cudaError_t (0 on success).
+extern "C" int txr_attention_cached_fwd(const void* qkv, const void* kv,
+                                        void* out, int S, int H, int kv_len,
+                                        int cached, int frame_tokens,
+                                        float scale, void* stream) {
+  if (S < 1 || H < 1 || H > 65535 || kv_len < 1 || cached < 0 ||
+      frame_tokens < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_q, map_kv;
+  const int64_t ldq = static_cast<int64_t>(3) * H * D;
+  const int64_t ldkv = static_cast<int64_t>(2) * H * D;
+  int rc = make_map(&map_q, qkv, S, 3 * H, 1, ldq, D, S * ldq);
+  if (rc != 0) return rc;
+  rc = make_map(&map_kv, kv, kv_len, 2 * H, 1, ldkv, D, kv_len * ldkv);
+  if (rc != 0) return rc;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Strides so = {static_cast<int64_t>(S) * H * D, D,
+                      static_cast<int64_t>(H) * D};
+  dim3 grid((S + BM - 1) / BM, H, 1);
+  attention_cached_kernel<<<grid, NTHREADS, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_kv, static_cast<bf16*>(out), so, H, S, kv_len, cached,
+      frame_tokens, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,25 @@ the call are on ``VGGT.outputs``. Its parts:
 (S, h, w, 3) and ``points_confidence`` (S, h, w), and ``pose_encoding``
 (S, 9), all float32. VGGT's track head runs only when query points are
 given, and is not here.
+
+StreamVGGT (Zhuo et al., 2025, arXiv:2507.11539; github.com/wzzheng/
+StreamVGGT) is VGGT with causal global attention: a frame's tokens attend
+to their own frame's and every earlier frame's, and at inference each
+global layer keeps the keys and values of the frames seen so far. The RoPE
+has no time term, so a cached key is never rotated again, and feeding
+frames in chunks through the cache gives what a frame-causal forward of all
+of them gives. ``StreamVGGT`` (``StreamVGGTConfig``: ``cache_frames``, the
+capacity, and ``stream_chunk_frames``) holds a ``StreamState``: one K/V
+slab per global layer, allocated once for ``cache_frames`` frames, the
+count of frames held and the last pair's camera tokens of those frames.
+``step`` runs one chunk: the front and the frame blocks as VGGT's, the
+global blocks through the cache (``models/vit.py:KVSlot``; on the card the
+attention kernel's cached entry point), the heads on the chunk's frames,
+and the camera head, causal over frames, recomputed over every frame held
+(at most ``cache_frames`` tokens). The first frame of a stream takes view
+0's camera and register tokens, every later frame the other set.
+``reset`` empties the state; the module's call on a submap resets it and
+steps through the submap in chunks.
 """
 
 from __future__ import annotations
@@ -50,7 +69,7 @@ import torch.nn.functional as F
 
 from txr_torch.core.derived import Derived
 from txr_torch.models.dpt import DPTConfig, DPTHead, _bilinear
-from txr_torch.models.vit import Block, Mlp, ViTConfig, ViTEncoder
+from txr_torch.models.vit import Block, KVSlot, Mlp, ViTConfig, ViTEncoder
 from txr_torch.ops.dpt_tail import position_term
 from txr_torch.ops.qk_prep import rope_tables
 from txr_torch.utils.profiling import count, span
@@ -131,6 +150,57 @@ class VGGTConfig:
                          fused_head=self.fused_head,
                          special_tokens=self.special_tokens,
                          relu_skip=True)
+
+
+@dataclass(frozen=True)
+class StreamVGGTConfig(VGGTConfig):
+    stream_chunk_frames: int = 32      # keyframes one update takes
+    cache_frames: int = 128            # the submap: the cache's capacity
+
+
+class StreamState:
+    """A stream's state: per global layer a slab of ``capacity`` frames'
+    rows, each 2 D wide (k of every head, then v, after QK-norm and RoPE),
+    and ``camera``, the last pair's joined camera token of each frame held
+    (the camera head's input), all allocated once for a frame size, dtype
+    and device and kept while those stay; ``frames`` held. ``reset``
+    empties it without freeing."""
+
+    def __init__(self, layers: int, capacity: int, width: int):
+        self.layers, self.capacity, self.width = layers, capacity, width
+        self.slabs: List[torch.Tensor] = []
+        self.camera: Optional[torch.Tensor] = None
+        self.frame_tokens = 0
+        self.frames = 0
+
+    def reset(self) -> None:
+        self.frames = 0
+
+    def reserve(self, frames: int, frame_tokens: int, dtype, device
+                ) -> None:
+        """Room for ``frames`` more frames of ``frame_tokens`` tokens:
+        raises past the capacity or for another frame size mid-stream."""
+        if self.frames + frames > self.capacity:
+            raise ValueError(f"the stream holds {self.frames} of "
+                             f"{self.capacity} frames; {frames} more do not "
+                             f"fit: reset() first")
+        if self.frames and frame_tokens != self.frame_tokens:
+            raise ValueError(f"a stream of {self.frame_tokens}-token frames "
+                             f"got frames of {frame_tokens}")
+        have = self.slabs[0] if self.slabs else None
+        if (have is None or frame_tokens != self.frame_tokens
+                or have.dtype != dtype or have.device != device):
+            self.slabs, self.camera = [], None       # freed before the new
+            rows = self.capacity * frame_tokens
+            self.slabs = [torch.empty((rows, self.width), dtype=dtype,
+                                      device=device)
+                          for _ in range(self.layers)]
+            self.camera = torch.empty((self.capacity, self.width),
+                                      dtype=dtype, device=device)
+            self.frame_tokens = frame_tokens
+
+    def slot(self, layer: int) -> KVSlot:
+        return KVSlot(self.slabs[layer], self.frames * self.frame_tokens)
 
 
 def uv_pos_embed(h: int, w: int, channels: int, aspect: float, dtype,
@@ -258,20 +328,29 @@ class Aggregator(nn.Module):
             self.add_module(f"frame_{i}", Block(a, 2 * i))
             self.add_module(f"global_{i}", Block(a, 2 * i + 1))
 
-    def _specials(self, views: int, dtype) -> torch.Tensor:
-        """(views, 1 + registers, d): the camera and register tokens."""
+    def _specials(self, views: int, dtype, first: bool = True
+                  ) -> torch.Tensor:
+        """(views, 1 + registers, d): the camera and register tokens, view
+        0's first where ``first``, the others' on every view else."""
         t = torch.cat([self.camera_token, self.register_token], dim=2)[0]
+        if not first:
+            return t[1:].expand(views, -1, -1).to(dtype)
         return torch.cat([t[:1], t[1:].expand(views - 1, -1, -1)]).to(dtype)
 
-    def forward(self, patches: torch.Tensor, ph: int, pw: int
+    def forward(self, patches: torch.Tensor, ph: int, pw: int,
+                stream: Optional[StreamState] = None
                 ) -> Dict[int, torch.Tensor]:
         """(S, ph*pw, d) patch tokens -> {pair: (S, 5 + ph*pw, 2 d)}, the
         joined within-view and cross-view outputs of the pairs the heads
-        read (the taken ones and the last)."""
+        read (the taken ones and the last). With ``stream`` (room reserved
+        for the S frames) the global blocks attend through its cache,
+        frame-causally, after the frames it holds."""
         with span("models.aggregator"):
             c = self.cfg
             s = patches.shape[0]
-            x = torch.cat([self._specials(s, patches.dtype), patches], dim=1)
+            first = stream is None or stream.frames == 0
+            x = torch.cat([self._specials(s, patches.dtype, first), patches],
+                          dim=1)
             rope = rope_tables(ph, pw, c.hidden_size // c.num_heads,
                                c.rope_base, x.device, c.special_tokens)
             want = set(c.out_layers) | {c.pairs - 1}
@@ -279,7 +358,9 @@ class Aggregator(nn.Module):
             for i in range(c.pairs):
                 x = getattr(self, f"frame_{i}")(x, rope)
                 local = x
-                x = getattr(self, f"global_{i}")(x, rope)
+                x = getattr(self, f"global_{i}")(
+                    x, rope, cache=None if stream is None
+                    else stream.slot(i))
                 if i in want:
                     out[i] = torch.cat([local, x], dim=-1)
             return out
@@ -308,7 +389,10 @@ class CameraHead(nn.Module):
         self.adaln_norm = nn.LayerNorm(d, eps=1e-6, elementwise_affine=False)
         self.pose_branch = Mlp(d, d // 2, POSE_DIM)
 
-    def forward(self, joined: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, joined: torch.Tensor, causal: bool = False
+                ) -> List[torch.Tensor]:
+        """``causal``: each view's token attends in the trunk to its own
+        and the earlier views' tokens only (StreamVGGT)."""
         with span("models.camera_head"):
             t = self.token_norm(joined[:, 0])[None]          # (1, S, 2 d)
             dt = t.dtype
@@ -321,7 +405,8 @@ class CameraHead(nn.Module):
                     F.silu(self.embed_pose(src))).chunk(3, dim=-1)
                 x = gate * (self.adaln_norm(t) * (1 + scale) + shift) + t
                 for i in range(self.cfg.camera_layers):
-                    x = getattr(self, f"block_{i}")(x)
+                    x = getattr(self, f"block_{i}")(
+                        x, frame_tokens=1 if causal else None)
                 delta = self.pose_branch(self.trunk_norm(x)).float()
                 pred = delta if pred is None else pred + delta
                 out.append(torch.cat([pred[0, :, :7], F.relu(pred[0, :, 7:])],
@@ -358,3 +443,55 @@ class VGGT(nn.Module):
             out["pose_encoding"] = poses[-1]
             self.outputs = out
             return out["depth"]
+
+
+class StreamVGGT(VGGT):
+    """StreamVGGT on VGGT's modules and weights (the module docstring). The
+    call maps a submap's normalised frames (S, h, w, 3), S at most
+    ``cache_frames``, to depth (S, h, w): ``reset``, then ``step`` over
+    chunks of ``stream_chunk_frames``; ``outputs`` holds every frame's.
+    A live caller calls ``reset`` and ``step`` itself."""
+
+    def __init__(self, cfg: StreamVGGTConfig):
+        super().__init__(cfg)
+        self.state = StreamState(cfg.pairs, cfg.cache_frames,
+                                 2 * cfg.hidden_size)
+
+    def reset(self) -> None:
+        """Start a new stream: the cache holds no frame."""
+        self.state.reset()
+
+    def step(self, pixels: torch.Tensor) -> torch.Tensor:
+        """One chunk of normalised frames (n, h, w, 3) after the frames
+        held: their depth (n, h, w); their outputs on ``outputs``."""
+        c = self.cfg
+        p = c.patch_size
+        n, ph, pw = pixels.shape[0], pixels.shape[1] // p, pixels.shape[2] // p
+        st = self.state
+        with span("models.stream.chunk"):
+            patches = self.front(pixels)[0][:, 1:]
+            st.reserve(n, c.special_tokens + ph * pw, patches.dtype,
+                       patches.device)
+            joined = self.aggregator(patches, ph, pw, st)
+            feats = [joined[i] for i in c.out_layers]
+            held = st.frames
+            st.camera[held:held + n].copy_(joined[c.pairs - 1][:, 0])
+            poses = self.camera_head(st.camera[:held + n, None], causal=True)
+            out = dict(self.depth_head(feats, ph, pw, p))
+            out.update(self.point_head(feats, ph, pw, p))
+            out["pose_encoding"] = poses[-1][held:]
+            st.frames = held + n
+            self.outputs = out
+            return out["depth"]
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        chunk = self.cfg.stream_chunk_frames
+        with span("models.forward"):
+            self.reset()
+            parts = []
+            for i in range(0, pixels.shape[0], chunk):
+                self.step(pixels[i:i + chunk])
+                parts.append(self.outputs)
+            self.outputs = {k: torch.cat([o[k] for o in parts])
+                            for k in parts[0]}
+            return self.outputs["depth"]

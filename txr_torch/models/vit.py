@@ -40,6 +40,15 @@ aggregator's blocks are these blocks with LayerNorms of eps 1e-5
 (``norm_eps``), and so are the camera head's, 2048 wide with heads of
 128, built with ``use_flash=False`` (the kernels take heads of 64).
 
+StreamVGGT (``models/vggt.py:StreamVGGT``; not in ``txr``) streams frames
+through the same blocks. Its global blocks call ``Attention`` with a
+``KVSlot`` of the stream's key / value cache: the chunk's k and v rows
+(after QK-norm and RoPE) are written into the slot's slab behind the rows it
+holds, and the chunk's queries attend to all of them under a frame-causal
+mask (``ops.attention.cached_attention``: the kernel's cached entry point
+on the card). Its camera trunk asks for the same mask without a cache
+(``frame_tokens``), on the plain route.
+
 Submodule names mirror ``txr``'s parameter tree (``block_0`` ...,
 ``attn.qkv``, ``mlp.fc1``), so ``txr_torch.models.convert.from_txr_params``
 is a walk over that tree. Activations are (B, S, D); pixels are NHWC.
@@ -56,8 +65,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from txr_torch.core.derived import Derived
-from txr_torch.ops.attention import (fused_attention, multi_head_attention,
-                                     split_heads)
+from txr_torch.ops.attention import (attention_cached_plain,
+                                     cached_attention, fused_attention,
+                                     multi_head_attention, split_heads)
 from txr_torch.ops.qk_prep import qk_prep, rope_tables
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import Int8LinearFused
@@ -196,6 +206,15 @@ class QKPrep(nn.Module):
             return qk_prep(qkv, heads, self.q_norm, self.k_norm, tables)
 
 
+@dataclass
+class KVSlot:
+    """One global layer's part of a stream's key / value cache: ``slab``
+    (rows, 2 H D), each row k of every head then v, after QK-norm and RoPE;
+    its first ``cached`` rows hold the stream's earlier frames."""
+    slab: torch.Tensor
+    cached: int
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig, layer: int = 0):
         super().__init__()
@@ -208,7 +227,14 @@ class Attention(nn.Module):
         self.qk_prep = (QKPrep(d // cfg.num_heads, cfg.norm_eps)
                         if 0 <= cfg.anyview_start <= layer else None)
 
-    def forward(self, x, kv_len: Optional[int] = None, rope=None):
+    def forward(self, x, kv_len: Optional[int] = None, rope=None,
+                cache: Optional[KVSlot] = None,
+                frame_tokens: Optional[int] = None):
+        """``cache``: a cross-view layer's ``KVSlot``; the B frames of ``x``
+        (S tokens each) attend to the slot's rows and, frame-causally, to
+        each other (``_cached``). ``frame_tokens`` without a cache: the
+        B S tokens attend frame-causally in frames of that many tokens,
+        on the plain route."""
         c = self.cfg
         b, s, d = x.shape
         head_dim = d // c.num_heads
@@ -218,6 +244,10 @@ class Attention(nn.Module):
         heads = qkv.shape[-1] // (3 * head_dim)
         if self.qk_prep is not None:
             qkv = self.qk_prep(qkv, heads, rope)
+        if cache is not None:
+            return self._cached(qkv, cache, heads, head_dim)
+        if frame_tokens is not None:
+            return self._frame_causal(qkv, frame_tokens, heads, head_dim)
         if self.crossview:
             # every token of every view as one sequence: a view, no copy
             qkv = qkv.view(1, b * s, qkv.shape[-1])
@@ -237,6 +267,44 @@ class Attention(nn.Module):
                 o = o.transpose(1, 2).reshape(qb, qs, heads * head_dim)
         return self.proj(o.view(b, s, -1) if self.crossview else o)
 
+    def _cached(self, qkv: torch.Tensor, slot: KVSlot, heads: int,
+                head_dim: int) -> torch.Tensor:
+        """The B frames of the (B, S, 3 H D) ``qkv`` after the slot's rows:
+        their k and v written to ``slot.slab[cached:cached + B S]``, then
+        each query row against the cached rows and the chunk's rows up to
+        the end of its frame. Counts the query-key pairs the mask keeps,
+        against cached rows and against the chunk's own."""
+        if not self.crossview:
+            raise ValueError("only a cross-view layer attends to a cache")
+        b, s, _ = qkv.shape
+        rows, c0 = b * s, slot.cached
+        with span("models.aggregator.kv_append"):
+            slot.slab[c0:c0 + rows].copy_(
+                qkv.view(rows, -1)[:, heads * head_dim:])
+        fresh = s * s * b * (b + 1) // 2
+        count("models.kv_rows_written", rows)
+        count("models.kv_pairs_cached", rows * c0)
+        count("models.kv_pairs_fresh", fresh)
+        count("models.attention_pairs_crossview", rows * c0 + fresh)
+        with span("models.encoder.cached"):
+            o = cached_attention(qkv.view(1, rows, -1), slot.slab, heads,
+                                 head_dim, c0, s)
+        return self.proj(o.view(b, s, -1))
+
+    def _frame_causal(self, qkv: torch.Tensor, frame_tokens: int,
+                      heads: int, head_dim: int) -> torch.Tensor:
+        """Each of the B sequences of ``qkv`` attending frame-causally in
+        frames of ``frame_tokens`` tokens, without a cache, on the plain
+        route (StreamVGGT's camera trunk: a token a frame, heads of 128)."""
+        b, s, _ = qkv.shape
+        q, k, v = split_heads(qkv, heads, head_dim)
+        n = s // frame_tokens
+        count("models.attention_pairs_local",
+              b * frame_tokens ** 2 * n * (n + 1) // 2)
+        with span("models.encoder.attention"):
+            o = attention_cached_plain(q, k, v, 0, frame_tokens)
+        return self.proj(o.transpose(1, 2).reshape(b, s, heads * head_dim))
+
 
 class Block(nn.Module):
     def __init__(self, cfg: ViTConfig, layer: int = 0):
@@ -255,8 +323,10 @@ class Block(nn.Module):
         else:
             self.mlp = Mlp(d, mlp_hidden, d, quant=cfg.quant)
 
-    def forward(self, x, rope=None):
-        x = x + self.attn(self.norm1(x), rope=rope) * self.ls1
+    def forward(self, x, rope=None, cache: Optional[KVSlot] = None,
+                frame_tokens: Optional[int] = None):
+        x = x + self.attn(self.norm1(x), rope=rope, cache=cache,
+                          frame_tokens=frame_tokens) * self.ls1
         return x + self.mlp(self.norm2(x)) * self.ls2
 
 

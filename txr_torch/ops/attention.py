@@ -36,6 +36,17 @@ mode of ``None`` is read from ``TXR_ATTN_SCORES`` (default ``"f32max"``) at
 every call. ``kv_len < S`` and :func:`attention_flash` have no score mode,
 as in ``txr``: they compute ``f32max``.
 
+The cached entry point (:func:`cached_attention`; no TPU kernel, since
+StreamVGGT is not in ``txr``) is a streaming model's frame-causal attention:
+the queries of a chunk of frames, from the chunk's fused projection, against
+a key / value cache of rows ``k | v`` (2*H*D wide) that holds ``cached``
+rows of earlier frames and then the chunk's own; a query row of frame f
+(``frame_tokens`` rows a frame) sees every cached key and the chunk's keys up
+to the end of frame f (:func:`key_limits`). On the card it is the same
+kernel's body under its own name, ``attention_cached_kernel``
+(:func:`cached_kernel_plan`: the key tiles each query block streams);
+:func:`attention_cached_plain` is its plain version.
+
 ``fused_attention`` and ``attention_flash`` take the plain version only for
 a tensor that lies on the CPU. For a CUDA tensor they launch the kernel or
 raise. Their gradients differentiate the plain versions, as ``txr``'s custom
@@ -141,6 +152,57 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  torch.full_like(logits, _NEG_INF))
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def key_limits(s: int, cached: int, frame_tokens: int, kv_len: int,
+               device=None) -> torch.Tensor:
+    """(s,) int64: the keys query row r of a chunk sees under the cached
+    entry point's frame-causal mask, ``min(kv_len, cached + (r //
+    frame_tokens + 1) * frame_tokens)`` (keys 0 ... limit - 1)."""
+    r = torch.arange(s, device=device)
+    return torch.clamp(cached + (r // frame_tokens + 1) * frame_tokens,
+                       max=kv_len)
+
+
+def attention_cached_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, cached: int,
+                           frame_tokens: int) -> torch.Tensor:
+    """The cached entry point's plain version on (B, H, S, D) queries and
+    (B, H, L, D) keys and values: :func:`attention_plain`'s arithmetic with
+    query row r limited to keys below ``key_limits(S, cached, frame_tokens,
+    L)[r]``. With ``cached`` 0, L = S and ``frame_tokens`` 1 it is causal
+    attention. Returns (B, H, S, D)."""
+    d = q.shape[-1]
+    s, length = q.shape[2], k.shape[2]
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        logits = logits * (d ** -0.5)
+        lim = key_limits(s, cached, frame_tokens, length, q.device)
+        seen = torch.arange(length, device=q.device) < lim[:, None]
+        logits = torch.where(seen, logits, torch.full_like(logits, _NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def cached_kernel_plan(s: int, kv_len: int, cached: int,
+                       frame_tokens: int) -> dict:
+    """What one head of the cached entry point's launch streams (pure; the
+    kernel's own arithmetic): per query block of ``BLOCK_Q`` rows, the key
+    tiles up to its last row's limit and the first tile it masks (the one
+    that holds its first row's limit); ``tile_pairs``, the query-key pairs
+    those tiles hold (rows past S included), against ``pairs``, those the
+    mask keeps."""
+    lim = key_limits(s, cached, frame_tokens, kv_len)
+    blocks = []
+    for q0 in range(0, s, BLOCK_Q):
+        last = min(q0 + BLOCK_Q, s) - 1
+        blocks.append({"q0": q0,
+                       "key_tiles": -(-int(lim[last]) // BLOCK_K),
+                       "first_masked": int(lim[q0]) // BLOCK_K})
+    return {"grid": (len(blocks), "heads", 1), "blocks": blocks,
+            "tile_pairs": sum(BLOCK_Q * b["key_tiles"] * BLOCK_K
+                              for b in blocks),
+            "pairs": int(lim.sum())}
 
 
 def key_norm_plain(k: torch.Tensor) -> torch.Tensor:
@@ -299,6 +361,52 @@ def fused_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
     if kv_len is not None and kv_len < qkv.shape[1]:
         mode = "f32max"
     return _FusedAttention.apply(qkv, num_heads, head_dim, kv_len, mode)
+
+
+def cached_attention(qkv: torch.Tensor, kv: torch.Tensor, num_heads: int,
+                     head_dim: int, cached: int, frame_tokens: int
+                     ) -> torch.Tensor:
+    """The cached entry point: softmax(q k^T / sqrt(D)) v for the chunk's
+    queries, q of the (1, S, 3*H*D) fused projection ``qkv``, against the
+    first ``cached + S`` rows of the cache ``kv`` (rows of k of every head,
+    then v: 2*H*D wide), under the frame-causal mask of
+    :func:`key_limits`. The chunk's own k and v must already be in
+    ``kv[cached:cached + S]``. Returns (1, S, H*D). The kernel on a CUDA
+    tensor, :func:`attention_cached_plain` on a CPU tensor; forward only."""
+    h, d = num_heads, head_dim
+    if qkv.dim() != 3 or qkv.shape[0] != 1 or qkv.shape[2] != 3 * h * d:
+        raise ValueError(f"qkv must be (1, S, 3*{h}*{d}), got "
+                         f"{tuple(qkv.shape)}")
+    s = qkv.shape[1]
+    length = cached + s
+    if (kv.dim() != 2 or kv.shape[1] != 2 * h * d or kv.shape[0] < length
+            or cached < 0 or frame_tokens < 1):
+        raise ValueError(f"kv must be (>= {length}, 2*{h}*{d}) with cached "
+                         f">= 0 and frame_tokens >= 1, got "
+                         f"{tuple(kv.shape)}, cached {cached}, frame_tokens "
+                         f"{frame_tokens}")
+    if qkv.device.type == "cpu":
+        q = split_heads(qkv, h, d)[0]
+        k, v = (kv[:length].view(1, length, 2, h, d)[:, :, i].transpose(1, 2)
+                for i in range(2))
+        o = attention_cached_plain(q, k, v, cached, frame_tokens)
+        return o.transpose(1, 2).reshape(1, s, h * d)
+    _check_kernel_qkv(qkv, h, d)
+    if (kv.dtype != torch.bfloat16 or kv.stride(1) != 1
+            or kv.stride(0) != 2 * h * d or kv.data_ptr() % 16
+            or kv.device != qkv.device):
+        raise ValueError("the cached attention kernel needs a bfloat16 kv "
+                         "of contiguous, 16-byte aligned rows on qkv's "
+                         "device")
+    out = torch.empty((1, s, h * d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _cuda.lib().txr_attention_cached_fwd(
+            qkv.data_ptr(), kv.data_ptr(), out.data_ptr(), s, h, length,
+            cached, frame_tokens, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, "attention_cached")
+    _cuda.launches["attention_cached"] += 1
+    return out
 
 
 def _check_bhsd(q, k, v, kv_len) -> None:
