@@ -30,7 +30,13 @@ merge; the insert's merge of its sorted batch into the map's key-ordered
 rows (merge kernel) is held bit for bit, keys and permutation, against its
 plain version and ``torch.sort`` of all rows, at 2^26 map rows with the
 cells' 8- and 16-frame batches and on ties, empty rows, empty sides and
-ragged lengths. Every kernel is run twice on one input and must repeat bit for bit,
+ragged lengths; the ViT block's residual kernel (x + branch * gamma, and
+the LayerNorm after it) is held against its plain version, x' bit for bit
+and h within one bf16 ulp of the LayerNorm's terms, at the cells' steps,
+at widths 384 to 2048, on ragged row counts and in a float32 model's and
+bf16 autocast's dtypes, with its autograd route's gradients bit-equal to
+the plain composition's.
+Every kernel is run twice on one input and must repeat bit for bit,
 is timed against its library call (where one exists) inside one interleaved
 loop (min / median / max on the ``kernels`` line; the int8 linear's quantise
 pass and product also apart), and the built library must report the tiling
@@ -149,8 +155,8 @@ with seeded weights (attention and tail kernels), the device's hybrid
 features (SIFT, ORB, LSD with the scan kernel at 8 columns once a frame,
 Canny), host matching, fundamental RANSAC + ``pair_step`` per pair, the
 scales, and the voxel merge (the scan kernel once more) into a PLY that is
-read back; it must launch attention >= 24, tail >= 1 and segscan 9 times,
-and prints its stages (events), each feature op on one frame, its peak
+read back; it must launch attention >= 24, tail >= 1, segscan 9 times and
+the residual kernel twice an attention launch, and prints its stages (events), each feature op on one frame, its peak
 memory and one profiled ``reconstruct()``. Run B takes the scene's depth
 as the model and bundle adjustment on: poses and scales are held to the
 truth (``SFM_TOL``) and the RMS history may not rise. Then the scan kernel
@@ -321,6 +327,13 @@ from txr_torch.ops.qk_prep import THREADS as QK_THREADS
 from txr_torch.ops.qk_prep import _launch as qk_prep_launch
 from txr_torch.ops.qk_prep import (qk_prep, qk_prep_plain,
                                    require_qk_prep_operands, rope_tables)
+from txr_torch.ops.residual_norm import MAX_WIDTH as RN_MAX_WIDTH
+from txr_torch.ops.residual_norm import ROWS_PER_BLOCK as RN_ROWS_PER_BLOCK
+from txr_torch.ops.residual_norm import THREADS as RN_THREADS
+from txr_torch.ops.residual_norm import VEC as RN_VEC
+from txr_torch.ops.residual_norm import _launch as residual_norm_launch
+from txr_torch.ops.residual_norm import (require_residual_norm_operands,
+                                         residual_norm, residual_norm_plain)
 from txr_torch.ops.scan import ITEMS as SCAN_ITEMS
 from txr_torch.ops.scan import MAX_COLS as SCAN_MAX_COLS
 from txr_torch.ops.scan import THREADS as SCAN_THREADS
@@ -408,6 +421,34 @@ def time_spread(fns: dict, runs: int = 20, warmup: int = 3,
         for name, fn in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / inner)
+    return {name: {"min": min(ts), "median": statistics.median(ts),
+                   "max": max(ts), "runs": runs, "launches_per_run": inner}
+            for name, ts in times.items()}
+
+
+def time_queued(fns: dict, runs: int = 10, inner: int = 10) -> dict:
+    """Device time of several functions in turn, as ``time_spread``, but
+    each sample enqueued behind a bf16 product of 8192 x 8192 matrices
+    (over a millisecond of device work) that starts before the first event:
+    the host enqueues the sample's ``inner`` launches while the card is
+    busy, so a function whose host work is longer than its device time is
+    not paced by the host. Returns ``{name: {"min", "median", "max"}}``."""
+    gate = torch.ones((8192, 8192), dtype=torch.bfloat16, device="cuda")
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            gate @ gate
             start.record()
             for _ in range(inner):
                 fn()
@@ -2025,6 +2066,225 @@ def check_cached_attention(batch: int, gen: torch.Generator) -> dict:
             "plain_ms": None, "library_ms": None, "chunks": chunks}
 
 
+# The residual kernel's shapes: the cells' steps (DA2's 8 frames, VGGT's 32
+# views, DA3's 16 views of 1024 wide tokens, with their LayerNorm eps), the
+# other widths of the port's blocks (ViT-S, ViT-B, ViT-G, VGGT's camera
+# trunk) and ragged row counts (a block holds 4 rows)
+RN_CELLS = ((8 * 2443, 1e-6), (32 * 782, 1e-5), (16 * 2443, 1e-6))
+RN_WIDTHS = ((1001, 384), (1001, 768), (1001, 1536), (37, 2048))
+RN_RAGGED = (1, 3, 5, 4097)
+RN_F32_TOL = dict(
+    atol=2.0 ** -17, rtol=2.0 ** -17,
+    why="h in float32 (a float32 model; bf16 autocast): the kernel's two "
+        "passes over its registers sum in another order than PyTorch's "
+        "Welford kernel, a few float32 ulps of the normalised value")
+
+
+def residual_norm_operands(rows: int, width: int, gen: torch.Generator,
+                           dtypes=(torch.bfloat16,) * 3, eps: float = 1e-6
+                           ) -> tuple:
+    """Seeded x (std 2, mean 0.5), branch (std 1), LayerScale gamma in
+    [0.01, 2) and a LayerNorm (weight about 1, bias about 0) of the given
+    (x, branch, parameter) dtypes."""
+    xd, bd, pd = dtypes
+    x = (torch.randn((rows, width), generator=gen, device="cuda") * 2.0
+         + 0.5).to(xd)
+    branch = torch.randn((rows, width), generator=gen, device="cuda").to(bd)
+    gamma = (torch.rand((width,), generator=gen, device="cuda") * 1.99
+             + 0.01).to(pd)
+    ln = torch.nn.LayerNorm(width, eps=eps, device="cuda", dtype=pd)
+    with torch.no_grad():
+        ln.weight.copy_(torch.randn((width,), generator=gen, device="cuda")
+                        * 0.3 + 1.0)
+        ln.bias.copy_(torch.randn((width,), generator=gen, device="cuda")
+                      * 0.1)
+    return x, branch, gamma, ln
+
+
+def norm_term_scale(out: torch.Tensor, ln) -> torch.Tensor:
+    """|w n| + |b| in float32, n the normalised x': the size of the two
+    terms whose sum h rounds. Where they cancel, h's own ulp is far below
+    the rounding error of either term."""
+    n = F.layer_norm(out.float(), out.shape[-1:], eps=ln.eps)
+    return (n * ln.weight.float()).abs() + ln.bias.float().abs()
+
+
+def compare_residual_norm(case: str, got: tuple, want: tuple, ln) -> dict:
+    """One kernel_check line: x' bit for bit; h bf16 within one bf16 ulp of
+    the LayerNorm's terms (``norm_term_scale``) of the plain version's, the
+    bit-equal share, the largest difference in ulps of the value itself and
+    the share beyond one reported; or float32 within RN_F32_TOL. Raises
+    otherwise."""
+    torch.cuda.synchronize()
+    (out, h), (out_w, h_w) = got, want
+    if out.dtype != out_w.dtype or h.dtype != h_w.dtype:
+        raise AssertionError(f"residual_norm/{case}: dtypes {out.dtype} "
+                             f"{h.dtype}, plain {out_w.dtype} {h_w.dtype}")
+    out_equal = torch.equal(out, out_w)
+    if not torch.isfinite(h).all():
+        raise AssertionError(f"residual_norm/{case}: h is not finite")
+    line = {"phase": "kernel_check", "kernel": "residual_norm",
+            "case": case, "shape": list(out.shape),
+            "dtypes": [str(out.dtype), str(h.dtype)],
+            "x_out_bit_equal": out_equal,
+            "h_bit_equal_share": (h == h_w).sum().item() / h.numel()}
+    if h.dtype == torch.bfloat16:
+        own = (bf16_ordered(h) - bf16_ordered(h_w)).abs()
+        line["h_max_ulps"] = int(own.max().item())
+        line["h_share_beyond_one_ulp"] = (own > 1).sum().item() / h.numel()
+        del own
+        _, exp = torch.frexp(norm_term_scale(out_w, ln))
+        term_ulps = (h.float() - h_w.float()).abs() / torch.exp2(
+            (exp - 8).float())
+        line["h_max_ulps_of_terms"] = term_ulps.max().item()
+        del term_ulps, exp
+        ok = line["h_max_ulps_of_terms"] <= 1
+    else:
+        err = (h - h_w).abs()
+        worst = (err - (RN_F32_TOL["atol"] + RN_F32_TOL["rtol"]
+                        * h_w.abs())).max().item()
+        line.update(h_max_abs_err=err.max().item(), least_margin=-worst,
+                    atol=RN_F32_TOL["atol"], rtol=RN_F32_TOL["rtol"],
+                    tolerance_reason=RN_F32_TOL["why"])
+        ok = worst <= 0
+    line["ok"] = ok = ok and out_equal
+    emit(line)
+    if not ok:
+        raise AssertionError(f"residual_norm/{case}: {line}")
+    return line
+
+
+def check_residual_norm_grads(gen: torch.Generator) -> None:
+    """Under bf16 autocast from float32 master parameters, as a train step
+    runs: the autograd Function's gradients of x, branch, gamma, weight and
+    bias equal the plain composition's bit for bit (its backward is the
+    plain version's)."""
+    x, branch, gamma, ln = residual_norm_operands(
+        1001, 1024, gen, (torch.float32, torch.bfloat16, torch.float32))
+    leaves = [t.detach().requires_grad_() for t in (x, branch, gamma)]
+    gout = torch.randn(x.shape, generator=gen, device="cuda")
+    gh = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (residual_norm, residual_norm_plain):
+        for t in (*leaves, ln.weight, ln.bias):
+            t.grad = None
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out, h = fn(*leaves, ln)
+        torch.autograd.backward((out, h), (gout.to(out.dtype),
+                                           gh.to(h.dtype)))
+        grads.append([t.grad.clone() for t in (*leaves, ln.weight, ln.bias)])
+    equal = [torch.equal(a, b) for a, b in zip(*grads)]
+    emit({"phase": "kernel_check", "kernel": "residual_norm",
+          "case": "autocast autograd: gradients of x, branch, gamma, weight, "
+                  "bias against the plain composition's",
+          "bit_equal": equal, "ok": all(equal)})
+    if not all(equal):
+        raise AssertionError(f"residual_norm gradients: {equal}")
+
+
+@torch.no_grad()
+def check_residual_norm(batch: int, gen: torch.Generator) -> dict:
+    """The residual kernel against its plain version: at the cells' steps,
+    at the other widths of the port's blocks, on ragged row counts and in
+    the dtypes of a float32 model and of bf16 autocast; x' bit for bit, h
+    within one bf16 ulp of the LayerNorm's terms
+    (``compare_residual_norm``); repeated bit for bit; the autograd route's
+    gradients; then timed, with and without the norm, against the plain
+    version's three launches and the bytes' bound."""
+    require_geometry("residual_norm", kernels.lib().txr_residual_norm_geometry,
+                     (RN_THREADS, RN_ROWS_PER_BLOCK, RN_VEC, RN_MAX_WIDTH))
+    cases = [(rows, 1024, eps) for rows, eps in RN_CELLS]
+    cases += [(rows, width, 1e-6) for rows, width in RN_WIDTHS]
+    cases += [(rows, 1024, 1e-5) for rows in RN_RAGGED]
+    for rows, width, eps in cases:
+        x, branch, gamma, ln = residual_norm_operands(rows, width, gen,
+                                                      eps=eps)
+        compare_residual_norm(f"rows={rows} d={width} eps={eps}",
+                              residual_norm(x, branch, gamma, ln),
+                              residual_norm_plain(x, branch, gamma, ln), ln)
+        alone = residual_norm(x, branch, gamma)
+        if not torch.equal(alone, x + branch * gamma):
+            raise AssertionError(f"residual_norm: rows={rows} d={width}: x' "
+                                 f"without the norm is not bit-equal")
+        require_repeatable("residual_norm", lambda: torch.cat(
+            residual_norm(x, branch, gamma, ln)))
+        del x, branch, gamma, ln, alone
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtypes, autocast in (((f32, f32, f32), False),
+                             ((bf16, bf16, f32), True),
+                             ((f32, bf16, f32), True),
+                             ((bf16, bf16, bf16), True)):
+        x, branch, gamma, ln = residual_norm_operands(1001, 1024, gen,
+                                                      dtypes)
+        with torch.autocast("cuda", dtype=bf16, enabled=autocast):
+            compare_residual_norm(
+                f"rows=1001 d=1024 x, branch, params "
+                f"{[str(d) for d in dtypes]} autocast={autocast}",
+                residual_norm(x, branch, gamma, ln),
+                residual_norm_plain(x, branch, gamma, ln), ln)
+    with torch.enable_grad():
+        check_residual_norm_grads(gen)
+
+    shapes = {}
+    for (rows, eps), cell in zip(RN_CELLS, ("DA2", "VGGT", "DA3")):
+        args = residual_norm_operands(rows, 1024, gen, eps=eps)
+        x, branch, gamma, ln = args
+        plan = require_residual_norm_operands(*args)
+        plan1 = require_residual_norm_operands(x, branch, gamma)
+        if cell == "DA2":
+            geometry = {k: v for k, v in plan.items()
+                        if not isinstance(v, torch.dtype)}
+        w, b = ln.weight, ln.bias
+        copy = torch.empty_like(x)          # a copy of x: 2 A, the card's pace
+        # host-paced (``ms``: the wrapper, as the model calls it) and not
+        # (``device_ms``)
+        spread = time_spread({
+            "kernel": lambda: residual_norm(*args),
+            "kernel_no_norm": lambda: residual_norm(x, branch, gamma)},
+            runs=10)
+        spread.update(time_queued({
+            "device": lambda: residual_norm_launch(x, branch, gamma, w, b,
+                                                   eps, plan),
+            "plain": lambda: residual_norm_plain(*args),
+            "device_no_norm": lambda: residual_norm_launch(
+                x, branch, gamma, None, None, 0.0, plan1),
+            "plain_no_norm": lambda: residual_norm_plain(x, branch, gamma),
+            "copy": lambda: copy.copy_(x)}))
+        a = rows * 1024 * 2
+        shapes[f"{cell} ({rows}, 1024)"] = {
+            "device_ms": spread["device"]["median"],
+            "ms": spread["kernel"]["median"],
+            "plain_ms": spread["plain"]["median"],
+            "bound_ms": 4 * a / PEAK_BYTES * 1e3,
+            "device_ms_no_norm": spread["device_no_norm"]["median"],
+            "ms_no_norm": spread["kernel_no_norm"]["median"],
+            "plain_ms_no_norm": spread["plain_no_norm"]["median"],
+            "bound_ms_no_norm": 3 * a / PEAK_BYTES * 1e3,
+            "tb_per_s": 4 * a / spread["device"]["median"] / 1e9,
+            "tb_per_s_no_norm":
+                3 * a / spread["device_no_norm"]["median"] / 1e9,
+            "copy_ms": spread["copy"]["median"],
+            "spread": spread}
+        del args, x, branch, gamma, ln, copy
+    # the host's share: at 64 rows the card finishes each launch before the
+    # next is enqueued, so a call's time is its host work
+    args = residual_norm_operands(64, 1024, gen)
+    host = time_spread({"kernel": lambda: residual_norm(*args),
+                        "plain": lambda: residual_norm_plain(*args)},
+                       runs=10, inner=50)
+    da2 = shapes[f"DA2 ({RN_CELLS[0][0]}, 1024)"]
+    return {"name": "residual_norm", "route": "cuda",
+            "source": "txr_torch/csrc/residual_norm.cu",
+            "replaces": None, "shape": [RN_CELLS[0][0], 1024],
+            "ms": da2["ms"], "device_ms": da2["device_ms"],
+            "plain_ms": da2["plain_ms"], "bound_ms": da2["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "gbytes_per_s": da2["tb_per_s"] * 1e3,
+            "host_ms_a_call_at_64_rows": {k: v["median"]
+                                          for k, v in host.items()},
+            "shapes": shapes, "geometry": geometry}
+
+
 # Each kernel's on-card checks by mode (``tools/kernel_dev.py <mode>``): the
 # CUDA source under txr_torch/csrc and the checks, each called as
 # ``check(batch, generator)``. check_offset_reduce returns the entry of the
@@ -2039,6 +2299,7 @@ KERNEL_CHECKS = {
     "qk_prep": ("qk_prep.cu", (check_qk_prep,)),
     "merge": ("merge.cu", (check_merge,)),
     "cached": ("attention.cu", (check_cached_attention,)),
+    "residual_norm": ("residual_norm.cu", (check_residual_norm,)),
 }
 
 
@@ -2259,7 +2520,11 @@ def drive_path(phase: str, frames: int, expect: dict, version: str = "v2",
 # launches per step of main_path's and quant_path's configurations
 # an insert: the batch merged into the map's rows, then the fused reduce
 INSERT_EXPECT = {"merge_sorted": 1, "offset_reduce": 1}
-MAIN_EXPECT = {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT}
+# two residual_norm launches a ViT block: after attention (with norm2) and
+# after the MLP
+RESIDUALS = 2
+MAIN_EXPECT = {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT,
+               "residual_norm": RESIDUALS * 24}
 QUANT_EXPECT = {**MAIN_EXPECT, "int8_linear": 96, "conv3x3": 9}
 QUANT_ENV = {"TXR_FUSED_CONVS": "1", "TXR_FUSED_HEAD": "1"}
 
@@ -2323,7 +2588,7 @@ def boundmax_path(frames: int, main_depth: torch.Tensor) -> dict:
     out, _ = path_with_env(
         "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames,
         {"attention_boundmax": 24, "attention_key_norm": 24, "dpt_tail": 1,
-         **INSERT_EXPECT}, main_depth)
+         "residual_norm": RESIDUALS * 24, **INSERT_EXPECT}, main_depth)
     out["score_mode"] = "boundmax"
     emit(out)
     return out
@@ -2533,7 +2798,8 @@ def depth_cli_path() -> dict:
         run = run_processor(model, frames, os.path.join(out_dir, "batched"),
                             batch_size=8)
         counts = run["launches"]
-        expect = {"attention": 24 * 2, "dpt_tail": 2}
+        expect = {"attention": 24 * 2, "dpt_tail": 2,
+                  "residual_norm": RESIDUALS * 24 * 2}
         wrong = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
         if wrong:
             raise AssertionError(f"depth_cli_path launched {counts}, "
@@ -2645,33 +2911,35 @@ def depth_cli_path() -> dict:
 
 # Every distinct model configuration of the registry at full width, with
 # the launches a step its code gives: one attention launch a block (every
-# registry head count is even, so the fused-layout kernel), one tail launch
-# and one fused-reduce launch a step; "int8p" one int8 launch per dense
-# layer (qkv, proj, fc1 / w12, fc2 / w3: 4 a block), "int8mix" one a block
-# (the policy table, txr_torch/models/vit.py:_dense, puts only the fc2 role,
-# fc2 or SwiGLU's w3, on the kernel and the rest on the library's
-# torch._int_mm); TXR_FUSED_CONVS=1 nine conv launches (fusion_1's and
-# fusion_0's four residual convs, the only maps of at least 96 x 96
-# pixels, and head_conv1). v1 has v2's widths per encoder, so it adds no
-# shape; v3 / large is ViT-L's (v3_metric_cli_path runs it).
+# registry head count is even, so the fused-layout kernel) and two residual
+# launches, one tail launch and one fused-reduce launch a step; "int8p" one
+# int8 launch per dense layer (qkv, proj, fc1 / w12, fc2 / w3: 4 a block),
+# "int8mix" one a block (the policy table, txr_torch/models/vit.py:_dense,
+# puts only the fc2 role, fc2 or SwiGLU's w3, on the kernel and the rest on
+# the library's torch._int_mm); TXR_FUSED_CONVS=1 nine conv launches
+# (fusion_1's and fusion_0's four residual convs, the only maps of at least
+# 96 x 96 pixels, and head_conv1). v1 has v2's widths per encoder, so it
+# adds no shape; v3 / large is ViT-L's (v3_metric_cli_path runs it).
 REGISTRY = (
     # version, encoder, quant, TXR_FUSED_CONVS, launches a step
     ("v2", "vitb", "none", False,
-     {"attention": 12, "dpt_tail": 1, **INSERT_EXPECT}),
+     {"attention": 12, "residual_norm": RESIDUALS * 12, "dpt_tail": 1,
+      **INSERT_EXPECT}),
     ("v2", "vitb", "int8p", True,
-     {"attention": 12, "dpt_tail": 1, **INSERT_EXPECT,
-      "int8_linear": 48, "conv3x3": 9}),
+     {"attention": 12, "residual_norm": RESIDUALS * 12, "dpt_tail": 1,
+      **INSERT_EXPECT, "int8_linear": 48, "conv3x3": 9}),
     ("v2", "vitg", "none", False,
-     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT}),
+     {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
+      **INSERT_EXPECT}),
     ("v2", "vitg", "int8mix", False,
-     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT,
-      "int8_linear": 40}),
+     {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
+      **INSERT_EXPECT, "int8_linear": 40}),
     ("v2", "vitg", "int8p", True,
-     {"attention": 40, "dpt_tail": 1, **INSERT_EXPECT,
-      "int8_linear": 160, "conv3x3": 9}),
+     {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
+      **INSERT_EXPECT, "int8_linear": 160, "conv3x3": 9}),
     ("v2", "vitl", "int8mix", False,
-     {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT,
-      "int8_linear": 24}),
+     {"attention": 24, "residual_norm": RESIDUALS * 24, "dpt_tail": 1,
+      **INSERT_EXPECT, "int8_linear": 24}),
 )
 # the 3x3 conv kernel's sites in the head whose operands are held to the
 # plain version
@@ -2903,8 +3171,9 @@ def plain_route(version: str, encoder: str, quant: str, model, x, depth,
     """The same weights built with ``use_flash=False``, ``TXR_FUSED_HEAD=0``
     and ``TXR_FUSED_CONVS=0`` (``quant`` as it is) on the staged step's
     input: no attention, tail or conv launch (the int8 kernel stays where
-    the policy puts it), and the depth as a share of the plain depth's
-    span, to ROUTE_TOL of the policy."""
+    the policy puts it, and the residual kernel, whose x' is the plain
+    version's bit for bit, in every block), and the depth as a share of the
+    plain depth's span, to ROUTE_TOL of the policy."""
     with scoped_env({"TXR_FUSED_HEAD": "0", "TXR_FUSED_CONVS": "0"}):
         plain, _, pdpt = build_model(
             version, encoder, use_flash=False, quant=quant,
@@ -2918,7 +3187,10 @@ def plain_route(version: str, encoder: str, quant: str, model, x, depth,
         want = plain(x).float()
     torch.cuda.synchronize()
     used = {k: v for k, v in kernels.launches.items() if v}
-    if used != ({"int8_linear": kernel_roles} if kernel_roles else {}):
+    want_used = {"residual_norm": RESIDUALS * model.encoder.cfg.num_layers}
+    if kernel_roles:
+        want_used["int8_linear"] = kernel_roles
+    if used != want_used:
         raise AssertionError(f"plain route launched {used}")
     del plain
     if not torch.isfinite(want).all():
@@ -3015,7 +3287,7 @@ def registry_path(frames: int) -> list:
 DA3_VIEWS = 16
 DA3_BLOCKS = (9, 23)
 DA3_EXPECT = {"attention": 24, "dpt_tail": 2, **INSERT_EXPECT,
-              "qk_prep": 16}
+              "qk_prep": 16, "residual_norm": RESIDUALS * 24}
 
 
 def attention_reference_blocked(qkv: torch.Tensor, heads: int,
@@ -3166,8 +3438,11 @@ def da3_path() -> dict:
 # same reference at bfloat16 (rms error over rms error)
 VGGT_VIEWS = 32
 VGGT_PAIRS = (11, 23)
+# blocks a forward: the front's 24, the aggregator's 48 and the camera
+# trunk's 4 in each of its 4 rounds
+VGGT_BLOCKS = 24 + 48 + 4 * 4
 VGGT_EXPECT = {"attention": 72, "dpt_tail": 2, **INSERT_EXPECT,
-               "qk_prep": 48}
+               "qk_prep": 48, "residual_norm": RESIDUALS * VGGT_BLOCKS}
 VGGT_ERR_RATIO = 2.0
 
 
@@ -3278,7 +3553,9 @@ STREAM_CHECKED = ((0, 23), (3, 11), (3, 23))
 STREAMVGGT_EXPECT = {"attention": STREAM_CHUNKS * 48,
                      "attention_cached": STREAM_CHUNKS * 24,
                      "qk_prep": STREAM_CHUNKS * 48,
-                     "dpt_tail": STREAM_CHUNKS * 2, **INSERT_EXPECT}
+                     "dpt_tail": STREAM_CHUNKS * 2,
+                     "residual_norm": STREAM_CHUNKS * RESIDUALS * VGGT_BLOCKS,
+                     **INSERT_EXPECT}
 
 
 class CachedCapture:
@@ -3492,8 +3769,11 @@ def v3_metric_cli_path() -> dict:
         run = run_processor(model, frames, out_dir, batch_size=8,
                             intrinsics=intr, max_depth=V3_CLI["max_depth"])
         counts = run["launches"]
-        # one attention launch a block and one tail launch a batch
-        expect = {"attention": model.vit_cfg.num_layers * 2, "dpt_tail": 2}
+        # one attention and two residual launches a block and one tail
+        # launch a batch
+        layers = model.vit_cfg.num_layers
+        expect = {"attention": layers * 2, "dpt_tail": 2,
+                  "residual_norm": RESIDUALS * layers * 2}
         if {k: n for k, n in counts.items() if n} != expect:
             raise AssertionError(f"v3_metric_cli_path launched {counts}, "
                                  f"expected {expect}")
@@ -4679,11 +4959,14 @@ def enhanced_cli_path() -> dict:
     expect = {"segscan": ENH_VIEWS + 1}
     if (launches["attention"] < 24 or launches["dpt_tail"] < 1
             or launches["segscan"] != expect["segscan"]
+            or launches["residual_norm"] != RESIDUALS * launches["attention"]
             or any(n for k, n in launches.items()
-                   if k not in ("attention", "dpt_tail", "segscan"))):
+                   if k not in ("attention", "dpt_tail", "segscan",
+                                "residual_norm"))):
         raise AssertionError(f"enhanced_cli_path launched {launches}; "
                              "attention >= 24, dpt_tail >= 1, segscan 9 "
-                             "(LSD once a frame, the merge once)")
+                             "(LSD once a frame, the merge once), two "
+                             "residual_norm an attention launch")
     lsd_inputs = timer.inputs.pop("lsd scan")
     raw = [int(m) for m in re.findall(r"RANSAC-F inliers \(pair \d+\): "
                                       r"\d+/(\d+)", text)]
@@ -5659,7 +5942,11 @@ def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
         d_f32 = f32(xn)
         torch.cuda.synchronize()
         used_f32 = dict(kernels.launches)
-    if (any(used_f32.values()) or used_bf16["attention"] != 24
+    # both models take the residual kernel, each in its own dtype
+    if (any(v for k, v in used_f32.items() if k != "residual_norm")
+            or used_f32["residual_norm"] != RESIDUALS * 24
+            or used_bf16["residual_norm"] != RESIDUALS * 24
+            or used_bf16["attention"] != 24
             or used_bf16["dpt_tail"] != 1 or dpt_cfg.fused_head is not False):
         raise AssertionError(f"bf16 model launched {used_bf16}, f32 model "
                              f"{used_f32}")
@@ -5924,7 +6211,9 @@ def forward_routes(model, plain_model, layers: int, images, target,
                                               kernels.launches.items() if v})
     (loss_k, pred_k, used_k), (loss_p, pred_p, used_p) = (runs["kernels"],
                                                           runs["plain"])
-    if used_k != {"attention": layers, "dpt_tail": 1} or used_p:
+    if (used_k != {"attention": layers, "dpt_tail": 1,
+                   "residual_norm": RESIDUALS * layers}
+            or used_p != {"residual_norm": RESIDUALS * layers}):
         raise AssertionError(f"train_path/forward: kernel route launched "
                              f"{used_k}, plain route {used_p}")
     if not (torch.isfinite(pred_k).all() and torch.isfinite(pred_p).all()):
@@ -6373,7 +6662,9 @@ def train_path(smi: str) -> dict:
         kern = run(model)
         kern = (kern[0], {n: g.clone() for n, g in kern[1].items()}, kern[2])
         plain = run(plain_model)
-        if (kern[2] != {"attention": layers, "dpt_tail": 1} or plain[2]):
+        if (kern[2] != {"attention": layers, "dpt_tail": 1,
+                        "residual_norm": RESIDUALS * layers}
+                or plain[2] != {"residual_norm": RESIDUALS * layers}):
             raise AssertionError(f"train_path: kernel route launched "
                                  f"{kern[2]}, plain route {plain[2]}")
         checks.append(compare_grads(f"kernels vs plain versions, {term}",
@@ -6475,8 +6766,9 @@ def train_path(smi: str) -> dict:
     per_step = {k: v / total for k, v in launches.items() if v}
     if (launches["attention"] != layers * total
             or launches["dpt_tail"] != total
+            or launches["residual_norm"] != RESIDUALS * layers * total
             or any(v for k, v in launches.items()
-                   if k not in ("attention", "dpt_tail"))):
+                   if k not in ("attention", "dpt_tail", "residual_norm"))):
         raise AssertionError(f"train_path: launches over {total} steps "
                              f"{launches}")
     if not all(np.isfinite(losses)) or min(losses[1:]) >= losses[0]:

@@ -282,7 +282,7 @@ def test_every_kernel_has_a_launch_count():
                                "attention_key_norm", "attention_bhsd",
                                "attention_cached", "dpt_tail", "segscan",
                                "offset_reduce", "int8_linear", "conv3x3",
-                               "qk_prep", "merge_sorted"}
+                               "qk_prep", "merge_sorted", "residual_norm"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
@@ -292,7 +292,7 @@ def test_every_kernel_has_a_launch_count():
                                   "attention_boundmax", "offset_map_insert",
                                   "voxel_downsample", "lsd_lines",
                                   "qk_prep", "merge_sorted",
-                                  "attention_cached"])
+                                  "attention_cached", "residual_norm"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -337,6 +337,11 @@ def test_cpu_tensors_never_reach_a_kernel(call):
 
         cached_attention(torch.ones(1, 3, 3 * 2 * 64),
                          torch.ones(8, 2 * 2 * 64), 2, 64, 4, 1)
+    elif call == "residual_norm":
+        from txr_torch.ops.residual_norm import residual_norm
+
+        x = torch.ones(3, 64, dtype=torch.bfloat16)
+        residual_norm(x, x, x[0], torch.nn.LayerNorm(64).to(torch.bfloat16))
     elif call == "merge_sorted":
         from txr_torch.ops.merge import merge_sorted
 

@@ -10,6 +10,7 @@
     timeout 240 python3 tools/kernel_dev.py qk_prep
     timeout 240 python3 tools/kernel_dev.py merge
     timeout 240 python3 tools/kernel_dev.py cached
+    timeout 240 python3 tools/kernel_dev.py residual_norm
 
 builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
 the chosen source (registers, spills, and the "wgmma ... serialized"

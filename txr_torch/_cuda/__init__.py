@@ -40,7 +40,7 @@ launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
                             "attention_cached": 0,
                             "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
                             "int8_linear": 0, "conv3x3": 0, "qk_prep": 0,
-                            "merge_sorted": 0}
+                            "merge_sorted": 0, "residual_norm": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -234,6 +234,13 @@ def _declare(h: ctypes.CDLL) -> None:
     # splits, stream)
     h.txr_merge_sorted_fwd.argtypes = [p, p, p, p, ll, ll, p, p, p, p]
     h.txr_merge_sorted_fwd.restype = i
+    # (out[4]: threads a block, rows a block, values a chunk, widest row)
+    h.txr_residual_norm_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_residual_norm_geometry.restype = None
+    # (x, branch, gamma, norm weight or null, norm bias or null, x' out,
+    # h out or null, rows, width, dtypes bits, eps, stream)
+    h.txr_residual_norm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
+    h.txr_residual_norm_fwd.restype = i
 
 
 def check(err: int, kernel: str) -> None:

@@ -10,7 +10,10 @@ through ``multi_head_attention`` on (B, H, S, D) views for an odd one, as in
 ``txr``. The large matrix products (qkv, proj, fc1, fc2, w12, w3, the patch
 embedding) are ``nn.Linear`` / ``nn.Conv2d``, as ``txr`` leaves them to its
 compiler, unless ``ViTConfig.quant`` selects an int8 policy for the block's
-dense layers (``_dense``).
+dense layers (``_dense``). A block's two residual updates, x + branch *
+LayerScale, and after attention the ``norm2`` of that too, go through
+``txr_torch.ops.residual_norm`` (on the card one kernel each, on the CPU
+the plain operators).
 
 The position embedding resized to a frame's patch grid is a function of
 the parameter and the grid alone, so it is kept (``core.derived.Derived``)
@@ -71,6 +74,7 @@ from txr_torch.ops.attention import (attention_cached_plain,
 from txr_torch.ops.qk_prep import qk_prep, rope_tables
 from txr_torch.ops.quant import Int8Linear
 from txr_torch.ops.quant_fused import Int8LinearFused
+from txr_torch.ops.residual_norm import residual_norm
 from txr_torch.ops.resize import resize_bicubic
 from txr_torch.utils.profiling import count, span
 
@@ -325,9 +329,21 @@ class Block(nn.Module):
 
     def forward(self, x, rope=None, cache: Optional[KVSlot] = None,
                 frame_tokens: Optional[int] = None):
-        x = x + self.attn(self.norm1(x), rope=rope, cache=cache,
-                          frame_tokens=frame_tokens) * self.ls1
-        return x + self.mlp(self.norm2(x)) * self.ls2
+        x, h = self._residual(x, self.attn(self.norm1(x), rope=rope,
+                                           cache=cache,
+                                           frame_tokens=frame_tokens),
+                              self.ls1, self.norm2)
+        return self._residual(x, self.mlp(h), self.ls2)
+
+    @staticmethod
+    def _residual(x, branch, gamma, norm=None):
+        """``ops.residual_norm``: x + branch * gamma, and the norm of that
+        where ``norm`` is given, in one kernel on the card; counts
+        ``models.residual_norm_kernel_calls`` or
+        ``models.residual_norm_plain_calls``, one a call."""
+        count("models.residual_norm_plain_calls" if x.device.type == "cpu"
+              else "models.residual_norm_kernel_calls", 1)
+        return residual_norm(x, branch, gamma, norm)
 
 
 def _resize_pos_embed(pos: torch.Tensor, ph: int, pw: int,
