@@ -1,16 +1,19 @@
 """The port's spans and counters (``txr_torch/utils/profiling.py``) on the
 main path, and the benchmark's reduction of them (``port_bench/lib/
-spans.py``), on the CPU with a tiny model and map.
+spans.py``) and readers of them (``port_bench/lib/program_spans.py``), on
+the CPU with a tiny model and map.
 
 With a profiler recording, one step (the model's forward, then the insert
 of the step's points) opens every ``txr.*`` span, nested as the calls
-are, and counts the rows sorted, the rows merged and the valid points; with none, no
-profiler range is entered, no counter is kept and the insert runs no
-extra reduction. ``spans.reduce`` gives each span's calls and host time,
-and the ``txr.*`` ranges leave ``trace.reduce``'s device numbers as they
-were without them.
+are, times each between its own marks (``span_times``), and counts the
+rows sorted, the rows merged and the valid points; with none, no profiler
+range is entered, no mark is made, no counter is kept and the insert runs
+no extra reduction. ``spans.reduce`` gives each span's calls and host
+time, and the ``txr.*`` ranges leave ``trace.reduce``'s device numbers as
+they were without them.
 """
 
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -34,7 +37,6 @@ LAYERS = 2
 PARENT = {
     "txr.models.forward": None,
     "txr.models.encoder": "txr.models.forward",
-    "txr.models.encoder.pos_embed": "txr.models.encoder",
     "txr.models.encoder.attention": "txr.models.encoder",
     "txr.models.head": "txr.models.forward",
     "txr.fusion.insert": None,
@@ -190,7 +192,8 @@ def test_insert_counters(inserts):
 
 def test_pos_embed_counters_over_two_profiled_forwards(model):
     """The first forward after a parameter change resizes the embedding,
-    the second reuses it; the span opens on both."""
+    the second reuses it; the counters say so, and no span of its own
+    opens around the lookup."""
     with torch.no_grad():
         model.encoder.pos_embed.add_(0.0)    # a new version: one miss
     x = torch.rand(FRAMES, H, W, 3, generator=torch.Generator().manual_seed(3))
@@ -204,7 +207,9 @@ def test_pos_embed_counters_over_two_profiled_forwards(model):
     got = profiling.counters()
     assert got["models.pos_embed_misses"] == 1
     assert got["models.pos_embed_hits"] == 1
-    assert spans_mod.reduce(prof)["calls"]["models.encoder.pos_embed"] == 2
+    calls = spans_mod.reduce(prof)["calls"]
+    assert calls["models.encoder"] == 2
+    assert "models.encoder.pos_embed" not in calls
 
 
 # Depth Anything 3 any-view: layers 0 to 2 within each view, layer 3 across
@@ -428,6 +433,31 @@ def test_trace_cost_sums_the_spans_a_step():
     assert tc.span_ms_per_step({"device_s": {}}, steps=3) == {}
 
 
+def test_trace_cost_puts_the_event_times_beside_the_linked_ones():
+    """``tools/trace_cost.py``: the program's ``span_times`` a step,
+    largest first, and each span's event time over its linked device
+    time, less 1, for the spans both have."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "trace_cost.py"
+    spec = importlib.util.spec_from_file_location("trace_cost", path)
+    tc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tc)
+    times = {"models.encoder": {"calls": 3, "device_ms": 63.0},
+             "models.head": {"calls": 3, "device_ms": 30.0},
+             "fusion.insert.sort": {"calls": 3, "device_ms": 3.3}}
+    event = tc.span_event_ms_per_step(times, steps=3)
+    assert list(event) == ["models.encoder", "models.head",
+                           "fusion.insert.sort"]
+    assert event["models.encoder"] == pytest.approx(21.0)
+    linked = {"models.encoder": 20.0, "fusion.insert.sort": 1.0,
+              "fusion.insert.count": 0.5}
+    gap = tc.span_event_gap(event, linked)
+    assert gap == pytest.approx({"models.encoder": 0.05,
+                                 "fusion.insert.sort": 0.1})
+
+
 def test_a_tensor_counter_sums_on_its_device_and_reads_once():
     profiled(lambda: [profiling.count("t", torch.tensor(v))
                       for v in (3, 4, True)] + [profiling.count("h", 5)])
@@ -646,3 +676,265 @@ def test_a_skewed_device_clock_is_measured_and_bounds_the_gaps():
         assert (label == "unresolved") == (secs * 1e9 < 2 * (skew - 2_000))
     assert any(g[0] == "unresolved" for g in red["idle_gaps_by_span"])
     assert any(g[0] != "unresolved" for g in red["idle_gaps_by_span"])
+
+
+# ----------------------------------------------- the spans' own times
+
+
+def test_span_times_sum_nested_intervals_and_count_calls():
+    """Each span's calls, and its intervals summed; a nested span's
+    interval inside its parent's. On the CPU the marks read the host's
+    clock."""
+    def run():
+        for _ in range(3):
+            with profiling.span("outer", torch.zeros(1)):
+                time.sleep(0.002)
+                with profiling.span("outer.inner"):
+                    time.sleep(0.003)
+
+    t0 = time.perf_counter_ns()
+    profiled(run)
+    wall_ms = (time.perf_counter_ns() - t0) * 1e-6
+    got = profiling.span_times()
+    assert {k: v["calls"] for k, v in got.items()} == {"outer": 3,
+                                                       "outer.inner": 3}
+    assert got["outer.inner"]["device_ms"] >= 3 * 3.0
+    assert got["outer"]["device_ms"] >= got["outer.inner"]["device_ms"] + \
+        3 * 2.0
+    assert got["outer"]["device_ms"] <= wall_ms
+    assert profiling.span_times() == got       # a second read adds nothing
+
+
+def test_span_times_of_a_step(model):
+    """One profiled step times every span it opens, once a call, each
+    nested span within its parent."""
+    profiled(lambda: step(model, create_offset_map(CAPACITY, 0.01, "cpu")))
+    got = profiling.span_times()
+    assert {k: v["calls"] for k, v in got.items()} == CALLS
+    for name, parent in PARENT.items():
+        assert got[name[4:]]["device_ms"] > 0, name
+        if parent is not None:
+            assert got[name[4:]]["device_ms"] <= \
+                got[parent[4:]]["device_ms"], name
+
+
+@pytest.fixture
+def marks_made(monkeypatch):
+    """Each timing mark the spans create, by device, from an empty pool."""
+    made, real = [], profiling._new_mark
+    monkeypatch.setattr(profiling, "_mark_pool", {})
+
+    def new(dev):
+        made.append(dev)
+        return real(dev)
+
+    monkeypatch.setattr(profiling, "_new_mark", new)
+    return made
+
+
+def test_no_mark_without_a_profiler_and_none_after_the_first_step(
+        model, marks_made):
+    vm = create_offset_map(CAPACITY, 0.01, "cpu")
+    profiling.reset_counters()
+    step(model, vm)
+    assert marks_made == [] and profiling.span_times() == {}
+    profiled(lambda: step(model, vm))
+    first = len(marks_made)
+    assert first > 0 and set(marks_made) == {None}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(model, vm)
+        step(model, vm)
+    assert len(marks_made) == first         # taken from the pool
+    assert profiling.span_times()["models.forward"]["calls"] == 3
+
+
+def test_no_mark_while_a_stream_captures(model, monkeypatch, marks_made):
+    """A CUDA graph being captured: the ranges open, nothing is timed."""
+    monkeypatch.setattr(profiling, "_capturing", lambda: True)
+    prof, _ = profiled(lambda: step(model, create_offset_map(CAPACITY, 0.01,
+                                                             "cpu")))
+    assert {e.name for e in prof.events() if e.name.startswith("txr.")} \
+        == set(PARENT) - {"txr.fusion.insert.count"}
+    assert marks_made == [] and profiling.span_times() == {}
+
+
+def test_reset_counters_clears_the_span_times(model):
+    profiled(lambda: step(model, create_offset_map(CAPACITY, 0.01, "cpu")))
+    assert profiling.span_times()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("pending"):
+            pass
+    profiling.reset_counters()
+    assert profiling.span_times() == {}
+
+
+@pytest.mark.chip
+def test_a_capturing_stream_records_no_span_time():
+    """On the card: a span opened while a CUDA graph captures is not
+    timed, one around the graph's replay is, on its CUDA events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the chip")
+    x = torch.ones(1 << 20, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1)                            # warm-up before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        with torch.cuda.graph(graph):
+            with profiling.span("captured", x):
+                x.add_(1)
+        with profiling.span("replayed", x):
+            graph.replay()
+    got = profiling.span_times()
+    assert "captured" not in got
+    assert got["replayed"]["calls"] == 1 and got["replayed"]["device_ms"] > 0
+    profiling.reset_counters()
+
+
+# ------------------------------------------------ attention's operations
+
+HD = 32                         # the tiny models' heads x head size
+
+
+def attention_flops(run):
+    profiled(run)
+    got = profiling.counters()
+    profiling.reset_counters()
+    return got["models.attention_flops"]
+
+
+def test_attention_flops_da2(model):
+    x = torch.rand(FRAMES, H, W, 3, generator=torch.Generator().manual_seed(8))
+    s = 1 + (H // 14) * (W // 14)
+    with torch.no_grad():
+        got = attention_flops(lambda: model(x))
+    assert got == 4 * HD * LAYERS * FRAMES * s * s
+
+
+def test_attention_flops_da3_crossview(anyview):
+    x = torch.rand(FRAMES, H, W, 3, generator=torch.Generator().manual_seed(9))
+    s = 1 + (H // 14) * (W // 14)
+    with torch.no_grad():
+        got = attention_flops(lambda: anyview(x))
+    assert got == 4 * HD * (3 * FRAMES * s * s + (FRAMES * s) ** 2)
+
+
+def test_attention_flops_vggt_with_the_camera_trunk(vggt):
+    """The front's block, two frame blocks and two global ones (heads of
+    16), and the camera trunk's plain call over one token a view (twice
+    as wide)."""
+    x = torch.rand(FRAMES, 28, 42, 3,
+                   generator=torch.Generator().manual_seed(10))
+    s = 5 + 2 * 3
+    with torch.no_grad():
+        got = attention_flops(lambda: vggt(x))
+    assert got == 4 * HD * (3 * FRAMES * s * s + 2 * (FRAMES * s) ** 2) \
+        + 4 * (2 * HD) * FRAMES ** 2
+
+
+def test_attention_flops_stream_cached_and_frame_causal(stream):
+    """Two chunks of two frames: each chunk's front and frame blocks, the
+    cached global calls (the pairs the mask keeps, against the cache and
+    the chunk's own rows), and the camera trunk's frame-causal calls."""
+    x = torch.rand(4, 28, 42, 3, generator=torch.Generator().manual_seed(11))
+    s, layers = 5 + 2 * 3, 2
+    with torch.no_grad():
+        got = attention_flops(lambda: stream(x))
+    assert got == 4 * HD * (2 * (1 + layers) * 2 * s * s
+                            + layers * 10 * s * s) + 4 * (2 * HD) * (3 + 10)
+
+
+# ------------------------------------------- the span metrics' readers
+
+SPAN_METRICS = ("models.encoder_ms.offline", "models.aggregator_ms.offline",
+                "models.head_ms.offline", "fusion.sort_ms.offline",
+                "fusion.reduce_ms.offline",
+                "kernels.attention_roofline.offline")
+
+
+def read_metrics(frames):
+    from port_bench.lib import spec
+
+    rec = {"trace": {"frames": frames}, "peak_flops": 989e12}
+    return {m: spec.metric_reader(m)(rec) for m in SPAN_METRICS}
+
+
+@pytest.mark.parametrize("arch", ["da2", "vggt"])
+def test_span_readers_on_a_profiled_step(arch, model, vggt):
+    """Each reader gives its spans' milliseconds a frame (the roofline:
+    the counter's operations over the attention spans' seconds); the
+    aggregator's only where the model has one."""
+    if arch == "da2":
+        run = lambda: step(model, create_offset_map(CAPACITY, 0.01, "cpu"))
+    else:
+        x = torch.rand(FRAMES, 28, 42, 3,
+                       generator=torch.Generator().manual_seed(12))
+
+        def run():
+            with torch.no_grad():
+                depth = vggt(x)
+            return offset_map_insert(create_offset_map(CAPACITY, 0.01, "cpu"),
+                                     points(depth.numel(), 12))
+    profiled(run)
+    t = {k: v["device_ms"] for k, v in profiling.span_times().items()}
+    flops = profiling.counters()["models.attention_flops"]
+    got = read_metrics(FRAMES)
+    profiling.reset_counters()
+    assert got["models.encoder_ms.offline"] == pytest.approx(
+        t["models.encoder"] / FRAMES)
+    assert got["models.head_ms.offline"] == pytest.approx(
+        (t["models.head"] + t.get("models.head.points", 0.0)) / FRAMES)
+    assert got["fusion.sort_ms.offline"] == pytest.approx(
+        t["fusion.insert.sort"] / FRAMES)
+    assert got["fusion.reduce_ms.offline"] == pytest.approx(
+        t["fusion.insert.reduce"] / FRAMES)
+    attn = sum(t.get(k, 0.0) for k in ("models.encoder.attention",
+                                        "models.encoder.crossview"))
+    assert got["kernels.attention_roofline.offline"] == pytest.approx(
+        100.0 * flops / 989e12 / (attn * 1e-3))
+    if arch == "da2":
+        assert got["models.aggregator_ms.offline"] is None
+    else:
+        assert "models.head.points" in t
+        assert got["models.aggregator_ms.offline"] == pytest.approx(
+            t["models.aggregator"] / FRAMES)
+
+
+def test_span_readers_read_nothing_without_the_programs_span_times(
+        model, monkeypatch):
+    profiled(lambda: step(model, create_offset_map(CAPACITY, 0.01, "cpu")))
+    monkeypatch.delattr(profiling, "span_times")
+    assert read_metrics(FRAMES) == dict.fromkeys(SPAN_METRICS)
+    profiling.reset_counters()
+
+
+def test_span_readers_read_nothing_outside_a_trace(model):
+    profiled(lambda: step(model, create_offset_map(CAPACITY, 0.01, "cpu")))
+    assert read_metrics(0) == dict.fromkeys(SPAN_METRICS)
+    profiling.reset_counters()
+
+
+@pytest.mark.parametrize("name", SPAN_METRICS)
+def test_span_metrics_are_entries_of_the_benchmark(name):
+    """Each span metric is an entry of ``BENCHMARK.json``, read from the
+    program's spans, moving ``frames_per_s``, with a reader of its own."""
+    import json
+    from pathlib import Path
+
+    from port_bench.lib import spec
+
+    bench = json.loads((Path(spec.ROOT) / "BENCHMARK.json").read_text())
+    entry = {m["name"]: m for m in bench["per_layer"]}[name]
+    assert entry["source"] == "program_span"
+    assert entry["moves"] == "frames_per_s"
+    assert callable(spec.metric_reader(name))
+    cells = [w["name"] for w in bench["workloads"]]
+    assert entry["workloads"] == (cells[2:] if "aggregator" in name
+                                  else cells)

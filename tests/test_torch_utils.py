@@ -104,8 +104,9 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     trace = json.loads((tmp_path / "step" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "aten::matmul" in names or "aten::mm" in names
-    assert {"txr.models.encoder", "txr.models.encoder.attention",
-            "txr.models.encoder.pos_embed"} <= names
+    assert {"txr.models.encoder", "txr.models.encoder.attention"} <= names
+    # the position embedding's lookup has counters and no span of its own
+    assert "txr.models.encoder.pos_embed" not in names
 
 
 def _run_main(module, argv, monkeypatch, capsys) -> str:

@@ -12,8 +12,12 @@ block's probes), ``frames_per_s`` (each block's closed loop, synced at its
 edges), ``counter_share`` (device time of the counters' span over the
 insert's, from each traced block), ``span_ms_per_step`` (each ``txr.``
 span's device milliseconds a step, from each traced block: the model's
-layers, VGGT's aggregator, camera head and point head among them) and
-each traced block's span reduction.
+layers, VGGT's aggregator, camera head and point head among them; the
+device time of the kernels the span launched, linked by the profiler),
+beside it ``span_event_ms_per_step`` (the same spans' milliseconds a step
+between their own CUDA events, the program's ``span_times``, which the
+benchmark's span metrics read) and ``span_event_gap`` (the second over
+the first, less 1), and each traced block's span reduction.
 Needs a CUDA card.
 """
 
@@ -38,6 +42,20 @@ def span_ms_per_step(reduction: dict, steps: int) -> dict:
             for k, v in sorted(dev.items(), key=lambda kv: -kv[1])}
 
 
+def span_event_ms_per_step(times: dict, steps: int) -> dict:
+    """Milliseconds a step of each span of ``profiling.span_times()``,
+    largest first."""
+    return {k: v["device_ms"] / steps
+            for k, v in sorted(times.items(),
+                               key=lambda kv: -kv[1]["device_ms"])}
+
+
+def span_event_gap(event: dict, linked: dict) -> dict:
+    """Each span's event time over its linked device time, less 1."""
+    return {k: event[k] / v - 1.0 for k, v in linked.items()
+            if v > 0 and k in event}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", default="vitl-offline-b8")
@@ -60,15 +78,6 @@ def main(argv=None) -> int:
     run = Run(spec.load_cell(args.workload), torch.device("cuda", 0))
     run.prepare(args.seed, trace_on=True)
     B, step = run.B, [0]
-    # The counters' reduction kernel loads lazily on its first launch,
-    # which stalls the card for milliseconds: load it before the blocks.
-    n = B * run.model_hw[0] * run.model_hw[1]
-    pts = torch.zeros((n, 3), device=run.dev)
-    with run._profiler():
-        run.program.insert(
-            run.program.create_map(1 << 10, run.map_cfg["voxel_m"], run.dev),
-            pts, pts, torch.ones(n, dtype=torch.bool, device=run.dev))
-    run.sync()
 
     def one():
         i = step[0]
@@ -102,6 +111,10 @@ def main(argv=None) -> int:
             dev = out["spans"]["device_s"]
             out["span_ms_per_step"] = span_ms_per_step(
                 out["spans"], args.probes + args.steps)
+            out["span_event_ms_per_step"] = span_event_ms_per_step(
+                profiling.span_times(), args.probes + args.steps)
+            out["span_event_gap"] = span_event_gap(
+                out["span_event_ms_per_step"], out["span_ms_per_step"])
             if dev.get("fusion.insert"):
                 out["counter_share"] = (dev.get("fusion.insert.count", 0.0)
                                         / dev["fusion.insert"])
@@ -119,8 +132,9 @@ def main(argv=None) -> int:
                     "frames_per_s": [b["frames_per_s"] for b in bs]}
     res["counter_share"] = [b.get("counter_share") for b in blocks
                             if b["on"]]
-    res["span_ms_per_step"] = [b["span_ms_per_step"] for b in blocks
-                               if b["on"]]
+    for key in ("span_ms_per_step", "span_event_ms_per_step",
+                "span_event_gap"):
+        res[key] = [b[key] for b in blocks if b["on"]]
     print(json.dumps(res), file=sys.stderr)
     res["blocks"] = blocks
     print(json.dumps(res), flush=True)

@@ -131,9 +131,23 @@ NCOLS = 4  # packed int32 columns
 def create_offset_map(capacity: int, voxel_size: float,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> OffsetVoxelMap:
+    """An empty map. On the card it also runs once the device work of the
+    insert's ``fusion.points_valid`` count (``_load_count_kernels``)."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        _load_count_kernels(dev)
     return _empty_map(capacity, torch.tensor(voxel_size, dtype=torch.float32,
                                              device=dev))
+
+
+def _load_count_kernels(dev: torch.device) -> None:
+    """The kernels of ``fusion.points_valid``'s count, as an insert under a
+    profiler runs them: a bool mask's sum and its int64 accumulator's copy
+    and add. Kernels load at their first launch, which stalls the card for
+    milliseconds; run here, that falls in set-up and not in the first
+    insert a profiler records."""
+    total = torch.ones(1 << 16, dtype=torch.bool, device=dev).sum()
+    total.to(torch.int64).clone().add_(total)
 
 
 def _empty_map(capacity: int, voxel_size: torch.Tensor) -> OffsetVoxelMap:
@@ -177,10 +191,10 @@ def offset_map_insert(vm: OffsetVoxelMap, points: PointSet) -> OffsetVoxelMap:
     (``fusion.points_valid``), none with a host sync.
     """
     cap = vm.khi.shape[0]
-    with span("fusion.insert"):
+    with span("fusion.insert", points.xyz):
         cols = _insert_cols(vm, points)
         if recording():
-            with span("fusion.insert.count"):
+            with span("fusion.insert.count", points.mask):
                 count("fusion.rows_sorted", cols[0].shape[0] - cap)
                 count("fusion.rows_merged", cap)
                 count("fusion.points_valid", points.mask.sum())
@@ -189,7 +203,7 @@ def offset_map_insert(vm: OffsetVoxelMap, points: PointSet) -> OffsetVoxelMap:
 
 def _insert_cols(vm: OffsetVoxelMap, points: PointSet):
     """The map's packed rows followed by the batch's."""
-    with span("fusion.insert.pack"):
+    with span("fusion.insert.pack", points.xyz):
         bcols = _point_cols(points, vm.voxel_size)
         return tuple(torch.cat([v, b]) for v, b in zip(vm[:NCOLS], bcols))
 
@@ -222,7 +236,7 @@ def _sort_keys(cols, head: int = 0):
     first ``head`` rows must be in key order already (a map's rows are):
     only the rows after them are sorted, and merged with them; the result
     is that of the stable sort of all rows."""
-    with span("fusion.insert.sort"):
+    with span("fusion.insert.sort", cols[0]):
         key = row_keys(cols[0][head:], cols[1][head:])
         if head == 0:
             return torch.sort(key, stable=True)
@@ -274,7 +288,7 @@ def _reduce_packed(cols, cap: int, voxel_size) -> OffsetVoxelMap:
     order), and reduce each voxel segment to one map row: the plain version
     on the CPU, the fused kernel on the card."""
     sorted_keys = _sort_keys(cols, cap)
-    with span("fusion.insert.reduce"):
+    with span("fusion.insert.reduce", cols[0]):
         if cols[0].device.type == "cpu":
             return _reduce_unfused(cols, cap, voxel_size, sorted_keys)
         out = _empty_map(cap, voxel_size)

@@ -108,7 +108,7 @@ class DepthAnything(nn.Module):
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         ph = pixels.shape[1] // self.vit.patch_size
         pw = pixels.shape[2] // self.vit.patch_size
-        with span("models.forward"):
+        with span("models.forward", pixels):
             hidden = self.encoder(pixels)
             out = self.head(hidden, ph, pw, self.vit.patch_size)
             if self.dpt.dual:

@@ -314,7 +314,7 @@ class DPTHead(nn.Module):
 
     def _dual(self, feats, out_h: int, out_w: int) -> dict:
         y = self._branch(feats, "fusion_", "head_conv", out_h, out_w)
-        with span("models.head.ray"):
+        with span("models.head.ray", feats[0]):
             r = self._branch(feats, "ray_fusion_", "ray_conv", out_h, out_w)
         return {"depth": y[..., 0].exp(), "confidence": 1 + y[..., 1].exp(),
                 "rays": r[..., :6], "ray_confidence": 1 + r[..., 6].exp()}
@@ -350,7 +350,7 @@ class DPTHead(nn.Module):
         the outputs (``dual``, a VGGT head).
         """
         c = self.cfg
-        with span(self.span_name):
+        with span(self.span_name, hidden_states[0]):
             feats = []
             # Reassemble: drop the special tokens, reshape to maps,
             # project, resize per stage.

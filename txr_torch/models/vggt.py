@@ -345,7 +345,7 @@ class Aggregator(nn.Module):
         read (the taken ones and the last). With ``stream`` (room reserved
         for the S frames) the global blocks attend through its cache,
         frame-causally, after the frames it holds."""
-        with span("models.aggregator"):
+        with span("models.aggregator", patches):
             c = self.cfg
             s = patches.shape[0]
             first = stream is None or stream.frames == 0
@@ -393,7 +393,7 @@ class CameraHead(nn.Module):
                 ) -> List[torch.Tensor]:
         """``causal``: each view's token attends in the trunk to its own
         and the earlier views' tokens only (StreamVGGT)."""
-        with span("models.camera_head"):
+        with span("models.camera_head", joined):
             t = self.token_norm(joined[:, 0])[None]          # (1, S, 2 d)
             dt = t.dtype
             pred = None                                      # float32
@@ -433,7 +433,7 @@ class VGGT(nn.Module):
         c = self.cfg
         p = c.patch_size
         ph, pw = pixels.shape[1] // p, pixels.shape[2] // p
-        with span("models.forward"):
+        with span("models.forward", pixels):
             patches = self.front(pixels)[0][:, 1:]
             joined = self.aggregator(patches, ph, pw)
             feats = [joined[i] for i in c.out_layers]
@@ -468,7 +468,7 @@ class StreamVGGT(VGGT):
         p = c.patch_size
         n, ph, pw = pixels.shape[0], pixels.shape[1] // p, pixels.shape[2] // p
         st = self.state
-        with span("models.stream.chunk"):
+        with span("models.stream.chunk", pixels):
             patches = self.front(pixels)[0][:, 1:]
             st.reserve(n, c.special_tokens + ph * pw, patches.dtype,
                        patches.device)
@@ -486,7 +486,7 @@ class StreamVGGT(VGGT):
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         chunk = self.cfg.stream_chunk_frames
-        with span("models.forward"):
+        with span("models.forward", pixels):
             self.reset()
             parts = []
             for i in range(0, pixels.shape[0], chunk):

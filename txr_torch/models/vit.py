@@ -204,7 +204,7 @@ class QKPrep(nn.Module):
 
     def forward(self, qkv: torch.Tensor, heads: int, tables):
         """``tables``: ``rope_tables`` of the batch's patch grid."""
-        with span("models.encoder.qk_prep"):
+        with span("models.encoder.qk_prep", qkv):
             count("models.qk_prep_plain_calls" if qkv.device.type == "cpu"
                   else "models.qk_prep_kernel_calls", 1)
             return qk_prep(qkv, heads, self.q_norm, self.k_norm, tables)
@@ -256,11 +256,12 @@ class Attention(nn.Module):
             # every token of every view as one sequence: a view, no copy
             qkv = qkv.view(1, b * s, qkv.shape[-1])
         qb, qs = qkv.shape[:2]
+        pairs = qb * qs * (qs if kv_len is None else kv_len)
         count("models.attention_pairs_crossview" if self.crossview
-              else "models.attention_pairs_local",
-              qb * qs * (qs if kv_len is None else kv_len))
+              else "models.attention_pairs_local", pairs)
+        count("models.attention_flops", 4 * heads * head_dim * pairs)
         with span("models.encoder.crossview" if self.crossview
-                  else "models.encoder.attention"):
+                  else "models.encoder.attention", qkv):
             if c.use_flash is not False and heads % 2 == 0:
                 # the kernel reads the fused layout in place
                 o = fused_attention(qkv, heads, head_dim, kv_len)
@@ -282,7 +283,7 @@ class Attention(nn.Module):
             raise ValueError("only a cross-view layer attends to a cache")
         b, s, _ = qkv.shape
         rows, c0 = b * s, slot.cached
-        with span("models.aggregator.kv_append"):
+        with span("models.aggregator.kv_append", qkv):
             slot.slab[c0:c0 + rows].copy_(
                 qkv.view(rows, -1)[:, heads * head_dim:])
         fresh = s * s * b * (b + 1) // 2
@@ -290,7 +291,9 @@ class Attention(nn.Module):
         count("models.kv_pairs_cached", rows * c0)
         count("models.kv_pairs_fresh", fresh)
         count("models.attention_pairs_crossview", rows * c0 + fresh)
-        with span("models.encoder.cached"):
+        count("models.attention_flops",
+              4 * heads * head_dim * (rows * c0 + fresh))
+        with span("models.encoder.cached", qkv):
             o = cached_attention(qkv.view(1, rows, -1), slot.slab, heads,
                                  head_dim, c0, s)
         return self.proj(o.view(b, s, -1))
@@ -303,9 +306,10 @@ class Attention(nn.Module):
         b, s, _ = qkv.shape
         q, k, v = split_heads(qkv, heads, head_dim)
         n = s // frame_tokens
-        count("models.attention_pairs_local",
-              b * frame_tokens ** 2 * n * (n + 1) // 2)
-        with span("models.encoder.attention"):
+        pairs = b * frame_tokens ** 2 * n * (n + 1) // 2
+        count("models.attention_pairs_local", pairs)
+        count("models.attention_flops", 4 * heads * head_dim * pairs)
+        with span("models.encoder.attention", qkv):
             o = attention_cached_plain(q, k, v, 0, frame_tokens)
         return self.proj(o.transpose(1, 2).reshape(b, s, heads * head_dim))
 
@@ -411,18 +415,17 @@ class ViTEncoder(nn.Module):
         pos = self.pos_embed
         if (ph, pw) == (c.pos_embed_size, c.pos_embed_size):
             return pos
-        with span("models.encoder.pos_embed"):
-            aa = c.pos_embed_antialias
-            if torch.is_grad_enabled() and pos.requires_grad:
-                return _resize_pos_embed(pos, ph, pw, aa)
-            out = self._pos_resized.get(pos, ph, pw, aa)
-            count("models.pos_embed_misses" if self._pos_resized.computed
-                  else "models.pos_embed_hits", 1)
-            return out
+        aa = c.pos_embed_antialias
+        if torch.is_grad_enabled() and pos.requires_grad:
+            return _resize_pos_embed(pos, ph, pw, aa)
+        out = self._pos_resized.get(pos, ph, pw, aa)
+        count("models.pos_embed_misses" if self._pos_resized.computed
+              else "models.pos_embed_hits", 1)
+        return out
 
     def forward(self, pixels: torch.Tensor) -> List[torch.Tensor]:
         """pixels: (B, H, W, 3) normalized; H, W multiples of patch_size."""
-        with span("models.encoder"):
+        with span("models.encoder", pixels):
             c = self.cfg
             b, h, w, _ = pixels.shape
             ph, pw = h // c.patch_size, w // c.patch_size
