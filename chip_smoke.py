@@ -35,7 +35,11 @@ the LayerNorm after it) is held against its plain version, x' bit for bit
 and h within one bf16 ulp of the LayerNorm's terms, at the cells' steps,
 at widths 384 to 2048, on ragged row counts and in a float32 model's and
 bf16 autocast's dtypes, with its autograd route's gradients bit-equal to
-the plain composition's.
+the plain composition's; the DPT head's upsample kernel is held against
+``F.interpolate`` at every cell's fusion-block shapes and the unfused
+tail's, both ``align_corners``, bf16, float32 and bf16 autocast, ragged
+channels and grids and a misaligned input, within one ulp with the
+bit-equal share, under autocast autograd and in a CUDA graph's replay.
 Every kernel is run twice on one input and must repeat bit for bit,
 is timed against its library call (where one exists) inside one interleaved
 loop (min / median / max on the ``kernels`` line; the int8 linear's quantise
@@ -87,7 +91,10 @@ layer (one sequence of 39,088 tokens after QK-norm and RoPE) against a
 float32 plain attention taken in blocks of query rows, and the tail
 kernel of both branches (2 and 7 output channels) against its plain
 version in float32, and no further from it than ``DPTHead``'s unfused
-bf16 tail. ``check_qk_prep`` holds the QK-norm / RoPE kernel alone at
+bf16 tail; every output (rays and confidences too) against the same
+forward with the heads' resizes through ``F.interpolate``
+(``upsample_route_change``, as in ``vggt_path`` and ``streamvggt_path``).
+``check_qk_prep`` holds the QK-norm / RoPE kernel alone at
 (16, 2443, 3072), an odd B x S and five heads, and times its launch, its
 wrapper and the plain chain.
 
@@ -334,6 +341,13 @@ from txr_torch.ops.residual_norm import VEC as RN_VEC
 from txr_torch.ops.residual_norm import _launch as residual_norm_launch
 from txr_torch.ops.residual_norm import (require_residual_norm_operands,
                                          residual_norm, residual_norm_plain)
+from txr_torch.ops.upsample import MAX_CHUNK_BYTES as UP_MAX_CHUNK_BYTES
+from txr_torch.ops.upsample import SEGMENT_CHUNKS as UP_SEGMENT_CHUNKS
+from txr_torch.ops.upsample import THREADS as UP_THREADS
+from txr_torch.ops.upsample import _launch as upsample_launch
+from txr_torch.ops.upsample import (require_upsample_operands,
+                                    upsample_bilinear,
+                                    upsample_bilinear_plain)
 from txr_torch.ops.scan import ITEMS as SCAN_ITEMS
 from txr_torch.ops.scan import MAX_COLS as SCAN_MAX_COLS
 from txr_torch.ops.scan import THREADS as SCAN_THREADS
@@ -2285,6 +2299,286 @@ def check_residual_norm(batch: int, gen: torch.Generator) -> dict:
             "shapes": shapes, "geometry": geometry}
 
 
+# The upsample kernel's shapes: each cell's fusion blocks, (frames,
+# channels, input grid, output grid), align_corners=True: DA2's four at 8
+# frames of 518 x 924 (DA3's are the same grids at 16 views), VGGT's four
+# at 32 views of 294 x 518 (StreamVGGT's chunks of 32 the same); the
+# unfused tail's resize to the frame (the plain routes, a float32 model)
+UP_CELLS = (
+    ("DA2 fusion_3", 8, 256, (19, 33), (37, 66)),
+    ("DA2 fusion_2", 8, 256, (37, 66), (74, 132)),
+    ("DA2 fusion_1", 8, 256, (74, 132), (148, 264)),
+    ("DA2 fusion_0", 8, 256, (148, 264), (296, 528)),
+    ("DA3 fusion_0", 16, 256, (148, 264), (296, 528)),
+    ("VGGT fusion_3", 32, 256, (11, 19), (21, 37)),
+    ("VGGT fusion_2", 32, 256, (21, 37), (42, 74)),
+    ("VGGT fusion_1", 32, 256, (42, 74), (84, 148)),
+    ("VGGT fusion_0", 32, 256, (84, 148), (168, 296)),
+    ("DA2 unfused tail", 8, 128, (296, 528), (518, 924)))
+# the residual resize (align_corners=False, a residual of another grid
+# than the block's input) and ragged cases: channel counts that no 16-byte
+# chunk divides, odd grids up and down, one pixel, equal grids (a copy)
+UP_RAGGED = (
+    (8, 256, (38, 67), (37, 66)), (2, 3, (5, 7), (11, 13)),
+    (2, 12, (17, 9), (8, 20)), (3, 100, (13, 11), (29, 5)),
+    (2, 6, (1, 1), (4, 5)), (2, 40, (7, 9), (1, 1)),
+    (2, 64, (9, 10), (9, 10)), (1, 264, (33, 31), (64, 3)))
+# the timed shapes: DA2's largest block and the cells' others
+UP_TIMED = ("DA2 fusion_0", "DA2 fusion_1", "DA3 fusion_0", "VGGT fusion_0",
+            "VGGT fusion_1", "DA2 unfused tail")
+
+
+def upsample_operand(n: int, c: int, hw: tuple, gen: torch.Generator,
+                     dtype=torch.bfloat16, offset: int = 0) -> torch.Tensor:
+    """A seeded (n, c, h, w) map of std 2 in channels_last memory, its
+    storage ``offset`` values past an allocation (a misaligned view)."""
+    h, w = hw
+    flat = torch.randn((n * h * w * c + offset,), generator=gen,
+                       device="cuda").mul_(2.0).to(dtype)
+    return flat[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """bf16 or float32 bit patterns as int64 in the order of their values:
+    neighbouring values differ by 1."""
+    if x.dtype == torch.bfloat16:
+        return bf16_ordered(x).to(torch.int64)
+    i = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(i >= 0x80000000, 0x80000000 - i, i)
+
+
+# PyTorch resizes a channels_last map of at least this many channels with
+# its channels-last kernel, a narrower one with its NCHW kernel
+UP_NHWC_MIN_CHANNELS = 16
+
+
+def interpolate_channels_last(x: torch.Tensor, size: tuple,
+                              align: bool) -> torch.Tensor:
+    """``F.interpolate`` through PyTorch's channels-last kernel, the one
+    the kernel reproduces: a map of fewer than UP_NHWC_MIN_CHANNELS
+    channels is padded with zero channels and cut back (each channel is
+    resized alone). PyTorch's NCHW kernel, which it takes below that
+    width, is contracted into other FMAs by nvcc in float32
+    (``check_upsample`` reports how far the two lie apart)."""
+    n, c, h, w = x.shape
+    if c >= UP_NHWC_MIN_CHANNELS:
+        return upsample_bilinear_plain(x, size, align)
+    pad = torch.zeros((n, h, w, UP_NHWC_MIN_CHANNELS), dtype=x.dtype,
+                      device=x.device).permute(0, 3, 1, 2)
+    pad[:, :c] = x
+    return upsample_bilinear_plain(pad, size, align)[:, :c].contiguous(
+        memory_format=torch.channels_last)
+
+
+def compare_upsample(case: str, got: torch.Tensor, want: torch.Tensor,
+                     x: torch.Tensor, size: tuple, align: bool) -> dict:
+    """One kernel_check line: the kernel's resize of ``x`` against
+    ``F.interpolate``'s (``interpolate_channels_last``) in shape, dtype
+    and memory format, the bit-equal share, the largest difference in ulps
+    of the value and in ulps of its terms: the resize of |x|, the size of the four weighted taps whose sum
+    is rounded (where they cancel, the value's own ulp is far below the
+    rounding error of any of them). Raises beyond one ulp of the terms:
+    the kernel takes the FMAs of PyTorch's build, so it reads bit-equal,
+    and only a contraction other than PyTorch's would move it."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"upsample/{case}: {tuple(got.shape)} "
+                             f"{got.dtype} against {tuple(want.shape)} "
+                             f"{want.dtype}")
+    ulps = (ordered_bits(got) - ordered_bits(want)).abs()
+    line = {"phase": "kernel_check", "kernel": "upsample", "case": case,
+            "shape": list(got.shape), "dtype": str(got.dtype),
+            "channels_last": got.is_contiguous(
+                memory_format=torch.channels_last),
+            "bit_equal_share": (ulps == 0).sum().item() / got.numel(),
+            "max_ulps": int(ulps.max().item())}
+    del ulps
+    terms = interpolate_channels_last(x.float().abs(), size, align)
+    _, exp = torch.frexp(terms)
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    term_ulps = (got.float() - want.float()).abs() / torch.exp2(
+        (exp - bits).float())
+    line["max_ulps_of_terms"] = term_ulps.max().item()
+    del terms, exp, term_ulps
+    line["ok"] = ok = (line["max_ulps_of_terms"] <= 1
+                       and line["channels_last"])
+    emit(line)
+    if not ok:
+        raise AssertionError(f"upsample/{case}: {line}")
+    return line
+
+
+def check_upsample_grads(gen: torch.Generator) -> None:
+    """Under bf16 autocast, as a train step runs the head: the autograd
+    Function's float32 output against ``F.interpolate``'s
+    (``compare_upsample``), and x's bf16 gradient (its backward is the
+    plain version's) within one bf16 ulp of its terms (the gradient of the
+    resize against |cotangent|) of the plain route's: PyTorch's backward
+    sums into its float32 gradient with atomics, in an order that changes
+    from call to call, and where the sums cancel that moves the value by
+    more than its own ulp."""
+    cot = torch.randn((2, 64, 42, 74), generator=gen, device="cuda")
+    for align in (True, False):
+        x = upsample_operand(2, 64, (21, 37), gen)
+        runs = []
+        for fn in (upsample_bilinear, upsample_bilinear_plain):
+            leaf = x.detach().requires_grad_()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = fn(leaf, (42, 74), align)
+            out.backward(cot.to(out.dtype))
+            runs.append((out.detach(), leaf.grad))
+        (out_k, g_k), (out_p, g_p) = runs
+        compare_upsample(f"autocast autograd, align_corners={align}: the "
+                         f"output", out_k, out_p, x, (42, 74), align)
+        leaf = x.detach().float().requires_grad_()
+        terms, = torch.autograd.grad(
+            upsample_bilinear_plain(leaf, (42, 74), align), leaf, cot.abs())
+        _, exp = torch.frexp(terms)
+        term_ulps = (g_k.float() - g_p.float()).abs() / torch.exp2(
+            (exp - 8).float())
+        line = {"phase": "kernel_check", "kernel": "upsample",
+                "case": f"autocast autograd, align_corners={align}: x's "
+                        f"{g_k.dtype} gradient against F.interpolate's",
+                "grad_bit_equal_share": (g_k == g_p).sum().item()
+                / g_k.numel(),
+                "grad_max_ulps_of_terms": term_ulps.max().item()}
+        line["ok"] = line["grad_max_ulps_of_terms"] <= 1
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"upsample gradients: {line}")
+
+
+def check_upsample_graph(gen: torch.Generator) -> None:
+    """The kernel captured in a CUDA graph and replayed on new input, as
+    the fused stream's graphs run it: the replay equals an eager call."""
+    x = upsample_operand(4, 256, (21, 37), gen)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        upsample_bilinear(x, (42, 74), True)          # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launches["upsample"]
+    with torch.cuda.graph(graph):
+        out = upsample_bilinear(x, (42, 74), True)
+    x.copy_(upsample_operand(4, 256, (21, 37), gen))
+    graph.replay()
+    equal = torch.equal(out, upsample_bilinear_plain(x, (42, 74), True))
+    emit({"phase": "kernel_check", "kernel": "upsample",
+          "case": "CUDA graph: captured, replayed on new input, against "
+                  "F.interpolate", "launches_captured":
+          kernels.launches["upsample"] - before, "bit_equal": equal,
+          "ok": equal})
+    if not equal:
+        raise AssertionError("upsample: the graph's replay differs")
+
+
+@torch.no_grad()
+def check_upsample(batch: int, gen: torch.Generator) -> dict:
+    """The upsample kernel against ``F.interpolate`` on the card: at each
+    cell's fusion-block shapes and the unfused tail's, both
+    ``align_corners``, bf16, float32 and bf16 autocast (float32 out), the
+    residual resize and ragged channels and grids, a misaligned input;
+    within one ulp of the terms, with the bit-equal share, of PyTorch's
+    channels-last kernel (``compare_upsample``; below 16 channels, where
+    ``F.interpolate`` takes its NCHW kernel, that kernel's distance is
+    reported beside it); repeated bit for bit; the autograd route under autocast; a CUDA graph's
+    replay; then timed against ``F.interpolate`` and the bytes' bound."""
+    require_geometry("upsample", kernels.lib().txr_upsample_geometry,
+                     (UP_THREADS, UP_SEGMENT_CHUNKS, UP_MAX_CHUNK_BYTES,
+                      UP_MAX_CHUNK_BYTES // 2))
+    f32, bf16 = torch.float32, torch.bfloat16
+    shares = []
+    cases = [(label, n, c, hw, size, True)
+             for label, n, c, hw, size in UP_CELLS]
+    cases += [(f"ragged {n}x{c}x{hw[0]}x{hw[1]}", n, c, hw, size, align)
+              for n, c, hw, size in UP_RAGGED for align in (True, False)]
+    nchw = []
+    for label, n, c, hw, size, align in cases:
+        for dtype, autocast in ((bf16, False), (f32, False), (bf16, True)):
+            x = upsample_operand(n, c, hw, gen, dtype)
+            case = (f"{label} -> {size[0]}x{size[1]} align_corners={align} "
+                    f"{dtype} autocast={autocast} vec="
+                    f"{require_upsample_operands(x, size, align)['vec']}")
+            with torch.autocast("cuda", dtype=bf16, enabled=autocast):
+                got = upsample_bilinear(x, size, align)
+                want = interpolate_channels_last(x, size, align)
+                direct = upsample_bilinear_plain(x, size, align)
+            shares.append(compare_upsample(case, got, want, x, size,
+                                           align)["bit_equal_share"])
+            if c < UP_NHWC_MIN_CHANNELS:
+                ulps = (ordered_bits(got) - ordered_bits(direct)).abs()
+                nchw.append({"case": case, "bit_equal_share": (
+                    ulps == 0).sum().item() / ulps.numel(),
+                    "max_ulps": int(ulps.max().item())})
+            del x, got, want, direct
+    emit({"phase": "kernel_check", "kernel": "upsample",
+          "case": "against F.interpolate itself below "
+                  f"{UP_NHWC_MIN_CHANNELS} channels (PyTorch's NCHW "
+                  "kernel; reported, not held)", "cases": nchw, "ok": True})
+    for dtype in (bf16, f32):
+        x = upsample_operand(2, 64, (21, 37), gen, dtype, offset=1)
+        compare_upsample(f"misaligned {dtype} vec="
+                         f"{require_upsample_operands(x, (42, 74), True)['vec']}",
+                         upsample_bilinear(x, (42, 74), True),
+                         upsample_bilinear_plain(x, (42, 74), True), x,
+                         (42, 74), True)
+    x = upsample_operand(8, 256, (148, 264), gen)
+    require_repeatable("upsample",
+                       lambda: upsample_bilinear(x, (296, 528), True))
+    del x
+    with torch.enable_grad():
+        check_upsample_grads(gen)
+    check_upsample_graph(gen)
+
+    shapes = {}
+    for label, n, c, hw, size in UP_CELLS:
+        if label not in UP_TIMED:
+            continue
+        x = upsample_operand(n, c, hw, gen)
+        plan = require_upsample_operands(x, size, True)
+        nbytes = n * c * 2 * (hw[0] * hw[1] + size[0] * size[1])
+        spread = time_spread({
+            "kernel": lambda: upsample_bilinear(x, size, True),
+            "library": lambda: upsample_bilinear_plain(x, size, True)},
+            runs=10)
+        spread.update(time_queued({
+            "device": lambda: upsample_launch(x, plan)}))
+        shapes[label] = {
+            "shape": [n, c, *hw], "size": list(size),
+            "device_ms": spread["device"]["median"],
+            "ms": spread["kernel"]["median"],
+            "library_ms": spread["library"]["median"],
+            "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "tb_per_s": nbytes / spread["device"]["median"] / 1e9,
+            "library_tb_per_s":
+                nbytes / spread["library"]["median"] / 1e9,
+            "spread": spread}
+        del x
+    # the host's share: on a map this small the card finishes each launch
+    # before the next is enqueued, so a call's time is its host work
+    x = upsample_operand(1, 256, (4, 4), gen)
+    host = time_spread({
+        "kernel": lambda: upsample_bilinear(x, (8, 8), True),
+        "library": lambda: upsample_bilinear_plain(x, (8, 8), True)},
+        runs=10, inner=50)
+    da2 = shapes["DA2 fusion_0"]
+    return {"name": "upsample", "route": "cuda",
+            "source": "txr_torch/csrc/upsample.cu", "replaces": None,
+            "shape": da2["shape"], "ms": da2["ms"],
+            "device_ms": da2["device_ms"], "plain_ms": da2["library_ms"],
+            "library_ms": da2["library_ms"], "bound_ms": da2["bound_ms"],
+            "bound_by": "bytes", "gbytes_per_s": da2["tb_per_s"] * 1e3,
+            "bit_equal_share_least": min(shares),
+            "below_16_channels_vs_nchw_kernel": {
+                "bit_equal_share_least": min(r["bit_equal_share"]
+                                             for r in nchw),
+                "max_ulps": max(r["max_ulps"] for r in nchw)},
+            "host_ms_a_call_at_4x4": {k: v["median"]
+                                      for k, v in host.items()},
+            "shapes": shapes}
+
+
 # Each kernel's on-card checks by mode (``tools/kernel_dev.py <mode>``): the
 # CUDA source under txr_torch/csrc and the checks, each called as
 # ``check(batch, generator)``. check_offset_reduce returns the entry of the
@@ -2300,6 +2594,7 @@ KERNEL_CHECKS = {
     "merge": ("merge.cu", (check_merge,)),
     "cached": ("attention.cu", (check_cached_attention,)),
     "residual_norm": ("residual_norm.cu", (check_residual_norm,)),
+    "upsample": ("upsample.cu", (check_upsample,)),
 }
 
 
@@ -2523,8 +2818,11 @@ INSERT_EXPECT = {"merge_sorted": 1, "offset_reduce": 1}
 # two residual_norm launches a ViT block: after attention (with norm2) and
 # after the MLP
 RESIDUALS = 2
+# four upsample launches a DPT branch: each fusion block's resize (the
+# fused tail resizes inside the tail kernel; the unfused one adds a fifth)
+UPSAMPLES = 4
 MAIN_EXPECT = {"attention": 24, "dpt_tail": 1, **INSERT_EXPECT,
-               "residual_norm": RESIDUALS * 24}
+               "residual_norm": RESIDUALS * 24, "upsample": UPSAMPLES}
 QUANT_EXPECT = {**MAIN_EXPECT, "int8_linear": 96, "conv3x3": 9}
 QUANT_ENV = {"TXR_FUSED_CONVS": "1", "TXR_FUSED_HEAD": "1"}
 
@@ -2588,7 +2886,8 @@ def boundmax_path(frames: int, main_depth: torch.Tensor) -> dict:
     out, _ = path_with_env(
         "boundmax_path", {"TXR_ATTN_SCORES": "boundmax"}, frames,
         {"attention_boundmax": 24, "attention_key_norm": 24, "dpt_tail": 1,
-         "residual_norm": RESIDUALS * 24, **INSERT_EXPECT}, main_depth)
+         "residual_norm": RESIDUALS * 24, "upsample": UPSAMPLES,
+         **INSERT_EXPECT}, main_depth)
     out["score_mode"] = "boundmax"
     emit(out)
     return out
@@ -2799,7 +3098,8 @@ def depth_cli_path() -> dict:
                             batch_size=8)
         counts = run["launches"]
         expect = {"attention": 24 * 2, "dpt_tail": 2,
-                  "residual_norm": RESIDUALS * 24 * 2}
+                  "residual_norm": RESIDUALS * 24 * 2,
+                  "upsample": UPSAMPLES * 2}
         wrong = {k: n for k, n in counts.items() if n != expect.get(k, 0)}
         if wrong:
             raise AssertionError(f"depth_cli_path launched {counts}, "
@@ -2924,22 +3224,22 @@ REGISTRY = (
     # version, encoder, quant, TXR_FUSED_CONVS, launches a step
     ("v2", "vitb", "none", False,
      {"attention": 12, "residual_norm": RESIDUALS * 12, "dpt_tail": 1,
-      **INSERT_EXPECT}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT}),
     ("v2", "vitb", "int8p", True,
      {"attention": 12, "residual_norm": RESIDUALS * 12, "dpt_tail": 1,
-      **INSERT_EXPECT, "int8_linear": 48, "conv3x3": 9}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT, "int8_linear": 48, "conv3x3": 9}),
     ("v2", "vitg", "none", False,
      {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
-      **INSERT_EXPECT}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT}),
     ("v2", "vitg", "int8mix", False,
      {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
-      **INSERT_EXPECT, "int8_linear": 40}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT, "int8_linear": 40}),
     ("v2", "vitg", "int8p", True,
      {"attention": 40, "residual_norm": RESIDUALS * 40, "dpt_tail": 1,
-      **INSERT_EXPECT, "int8_linear": 160, "conv3x3": 9}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT, "int8_linear": 160, "conv3x3": 9}),
     ("v2", "vitl", "int8mix", False,
      {"attention": 24, "residual_norm": RESIDUALS * 24, "dpt_tail": 1,
-      **INSERT_EXPECT, "int8_linear": 24}),
+      "upsample": UPSAMPLES, **INSERT_EXPECT, "int8_linear": 24}),
 )
 # the 3x3 conv kernel's sites in the head whose operands are held to the
 # plain version
@@ -3187,7 +3487,8 @@ def plain_route(version: str, encoder: str, quant: str, model, x, depth,
         want = plain(x).float()
     torch.cuda.synchronize()
     used = {k: v for k, v in kernels.launches.items() if v}
-    want_used = {"residual_norm": RESIDUALS * model.encoder.cfg.num_layers}
+    want_used = {"residual_norm": RESIDUALS * model.encoder.cfg.num_layers,
+                 "upsample": UPSAMPLES + 1}
     if kernel_roles:
         want_used["int8_linear"] = kernel_roles
     if used != want_used:
@@ -3287,7 +3588,8 @@ def registry_path(frames: int) -> list:
 DA3_VIEWS = 16
 DA3_BLOCKS = (9, 23)
 DA3_EXPECT = {"attention": 24, "dpt_tail": 2, **INSERT_EXPECT,
-              "qk_prep": 16, "residual_norm": RESIDUALS * 24}
+              "qk_prep": 16, "residual_norm": RESIDUALS * 24,
+              "upsample": 2 * UPSAMPLES}
 
 
 def attention_reference_blocked(qkv: torch.Tensor, heads: int,
@@ -3315,7 +3617,7 @@ def tail_hook(tails: dict, label: str, head, prefix: str):
 
 class AnyviewCapture:
     """What a Depth Anything 3 any-view forward hands its kernels, for
-    ``drive_path``'s staged step: the qkv of the cross-view blocks
+    ``drive_path``'s staged step: the model's input, the qkv of the cross-view blocks
     ``blocks`` as the attention kernel reads it (the output of the block's
     QK-norm / RoPE), and for each head branch the input and output of its
     conv1 (the unfused tail's input and the tail kernel's, NHWC)."""
@@ -3327,6 +3629,7 @@ class AnyviewCapture:
         self.qkv = {}
         self.pre = {}
         self.tails = {}
+        self.x = None
 
     def preps(self, model) -> dict:
         """The QK-norm / RoPE modules of the captured blocks."""
@@ -3339,6 +3642,7 @@ class AnyviewCapture:
 
     @contextlib.contextmanager
     def during(self, model, x: torch.Tensor):
+        self.x = x
         handles = []
         for i, prep in self.preps(model).items():
             # the kernel updates qkv in place: keep a copy of its input
@@ -3412,11 +3716,56 @@ def check_anyview(cap: AnyviewCapture, out_hw: tuple) -> list:
             for r in rec]
 
 
+@contextlib.contextmanager
+def plain_upsample():
+    """The DPT heads' resizes through ``F.interpolate`` (the upsample
+    kernel's plain version) for the block, in place of the kernel."""
+    import txr_torch.models.dpt as dpt
+
+    real = dpt.upsample_bilinear
+    dpt.upsample_bilinear = upsample_bilinear_plain
+    try:
+        yield
+    finally:
+        dpt.upsample_bilinear = real
+
+
+def upsample_route_change(model, x: torch.Tensor) -> dict:
+    """Every output of ``model`` on ``x`` (its ``outputs``: rays, points,
+    poses, confidences beside the depth that ``correct`` checks) through
+    the upsample kernel against the same forward with the heads' resizes
+    through ``F.interpolate`` (``plain_upsample``), on the card: each
+    output's largest absolute change and whether it is bit-equal."""
+    with torch.no_grad():
+        model(x)
+        got = {k: v.clone() for k, v in model.outputs.items()}
+        before = kernels.launches["upsample"]
+        with plain_upsample():
+            model(x)
+        if kernels.launches["upsample"] != before:
+            raise AssertionError("the plain upsample route launched the "
+                                 "kernel")
+        want = model.outputs
+    torch.cuda.synchronize()
+    out = {}
+    for name, g in got.items():
+        w = want[name]
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"upsample route: {name} is not finite")
+        out[name] = {"max_abs_change": (g.float() - w.float()).abs().max(
+        ).item(), "max_abs": w.float().abs().max().item(),
+                     "bit_equal": torch.equal(g, w)}
+    del got, want
+    return out
+
+
 def da3_path() -> dict:
     """``drive_path`` on Depth Anything 3 any-view at full width, DA3_VIEWS
     seeded 1080p frames a step as the views of one scene, seeded weights
     drawn on the card: DA3_EXPECT's launches a step, then ``check_anyview``
-    on the staged step."""
+    on the staged step and ``upsample_route_change`` (rays and confidences
+    beside the depth, against the heads' resizes through
+    ``F.interpolate``)."""
     t_phase = time.perf_counter()
     cap = AnyviewCapture()
     built = build_model(
@@ -3425,6 +3774,8 @@ def da3_path() -> dict:
     out, depth = drive_path("da3_path", DA3_VIEWS, DA3_EXPECT, "v3",
                             "large-anyview", built=built, capture=cap)
     out.update(kernel_checks=check_anyview(cap, tuple(depth.shape[1:])),
+               upsample_vs_plain_route=upsample_route_change(built[0],
+                                                             cap.x),
                crossview_tokens=DA3_VIEWS * out["tokens"],
                phase_s=time.perf_counter() - t_phase)
     emit(out)
@@ -3442,7 +3793,8 @@ VGGT_PAIRS = (11, 23)
 # trunk's 4 in each of its 4 rounds
 VGGT_BLOCKS = 24 + 48 + 4 * 4
 VGGT_EXPECT = {"attention": 72, "dpt_tail": 2, **INSERT_EXPECT,
-               "qk_prep": 48, "residual_norm": RESIDUALS * VGGT_BLOCKS}
+               "qk_prep": 48, "residual_norm": RESIDUALS * VGGT_BLOCKS,
+               "upsample": 2 * UPSAMPLES}
 VGGT_ERR_RATIO = 2.0
 
 
@@ -3454,7 +3806,6 @@ class VGGTCapture(AnyviewCapture):
 
     def __init__(self, pairs=VGGT_PAIRS):
         super().__init__(pairs)
-        self.x = None
 
     def preps(self, model) -> dict:
         return {i: getattr(model.aggregator, f"global_{i}").attn.qk_prep
@@ -3464,12 +3815,6 @@ class VGGTCapture(AnyviewCapture):
         return [tail_hook(self.tails, name, getattr(model, name),
                           "head_conv")
                 for name in ("depth_head", "point_head")]
-
-    @contextlib.contextmanager
-    def during(self, model, x: torch.Tensor):
-        self.x = x
-        with super().during(model, x):
-            yield
 
 
 def vggt_outputs(model, x: torch.Tensor, weights: dict, cfg: dict,
@@ -3515,7 +3860,7 @@ def vggt_path() -> dict:
     as the views of one scene: VGGT_EXPECT's launches a step; then
     ``check_anyview`` on the staged step (the ``qk_prep`` and attention
     kernels at two global blocks, S = 32 x 782, and both heads' tails with
-    the position term) and ``vggt_outputs``."""
+    the position term), ``vggt_outputs`` and ``upsample_route_change``."""
     from port_bench.lib import spec, weights
 
     t_phase = time.perf_counter()
@@ -3534,6 +3879,7 @@ def vggt_path() -> dict:
     checks = check_anyview(cap, tuple(depth.shape[1:]))
     outputs = vggt_outputs(model, cap.x, w, cfg)
     out.update(kernel_checks=checks, outputs=outputs,
+               upsample_vs_plain_route=upsample_route_change(model, cap.x),
                tokens=arch.tokens(cfg, model_hw),
                crossview_tokens=VGGT_VIEWS * arch.tokens(cfg, model_hw),
                depth_quantiles=torch.quantile(
@@ -3555,6 +3901,7 @@ STREAMVGGT_EXPECT = {"attention": STREAM_CHUNKS * 48,
                      "qk_prep": STREAM_CHUNKS * 48,
                      "dpt_tail": STREAM_CHUNKS * 2,
                      "residual_norm": STREAM_CHUNKS * RESIDUALS * VGGT_BLOCKS,
+                     "upsample": STREAM_CHUNKS * 2 * UPSAMPLES,
                      **INSERT_EXPECT}
 
 
@@ -3602,7 +3949,7 @@ def streamvggt_path() -> dict:
     staged step's own operands at STREAM_CHECKED against
     ``cached_reference`` in float32, and ``vggt_outputs`` against
     ``port_bench/reference/streamvggt.py`` (the frame-causal forward of
-    the whole submap, no cache)."""
+    the whole submap, no cache), and ``upsample_route_change``."""
     from port_bench.lib import spec, weights
     from port_bench.reference import streamvggt as sref
 
@@ -3633,6 +3980,7 @@ def streamvggt_path() -> dict:
     t0 = time.perf_counter()
     outputs = vggt_outputs(model, cap.x, w, cfg, sref)
     out.update(kernel_checks=checks, outputs=outputs,
+               upsample_vs_plain_route=upsample_route_change(model, cap.x),
                reference_s=time.perf_counter() - t0,
                cache_bytes=sum(s.numel() * s.element_size()
                                for s in model.state.slabs),
@@ -3773,7 +4121,8 @@ def v3_metric_cli_path() -> dict:
         # launch a batch
         layers = model.vit_cfg.num_layers
         expect = {"attention": layers * 2, "dpt_tail": 2,
-                  "residual_norm": RESIDUALS * layers * 2}
+                  "residual_norm": RESIDUALS * layers * 2,
+                  "upsample": UPSAMPLES * 2}
         if {k: n for k, n in counts.items() if n} != expect:
             raise AssertionError(f"v3_metric_cli_path launched {counts}, "
                                  f"expected {expect}")
@@ -4960,13 +5309,15 @@ def enhanced_cli_path() -> dict:
     if (launches["attention"] < 24 or launches["dpt_tail"] < 1
             or launches["segscan"] != expect["segscan"]
             or launches["residual_norm"] != RESIDUALS * launches["attention"]
+            or launches["upsample"] != UPSAMPLES * launches["dpt_tail"]
             or any(n for k, n in launches.items()
                    if k not in ("attention", "dpt_tail", "segscan",
-                                "residual_norm"))):
+                                "residual_norm", "upsample"))):
         raise AssertionError(f"enhanced_cli_path launched {launches}; "
                              "attention >= 24, dpt_tail >= 1, segscan 9 "
                              "(LSD once a frame, the merge once), two "
-                             "residual_norm an attention launch")
+                             "residual_norm an attention launch, four "
+                             "upsample a tail launch")
     lsd_inputs = timer.inputs.pop("lsd scan")
     raw = [int(m) for m in re.findall(r"RANSAC-F inliers \(pair \d+\): "
                                       r"\d+/(\d+)", text)]
@@ -5347,7 +5698,8 @@ def stream_cli_run(frames: list, out_dir: str, extra=(), warm=False
         raise AssertionError(f"stream CLI grid: {img.shape} against "
                              f"{grid.shape}, {yaml!r}")
     if not (launches["attention"] > 0 and launches["dpt_tail"] > 0
-            and launches["offset_reduce"] > 0):
+            and launches["offset_reduce"] > 0
+            and launches["upsample"] == UPSAMPLES * launches["dpt_tail"]):
         raise AssertionError(f"stream CLI launched {launches}")
     warm_fps = None
     if warm:
@@ -5893,7 +6245,8 @@ def stream_fused_path(stepwise=None) -> dict:
     if not (run_b["route"] == "fused_batched"
             and run_b_step["route"] == "stepwise"
             and all(launches.get(k, 0) > 0
-                    for k in ("attention", "dpt_tail", "offset_reduce"))):
+                    for k in ("attention", "dpt_tail", "offset_reduce"))
+            and launches.get("upsample") == UPSAMPLES * launches["dpt_tail"]):
         raise AssertionError(f"stream_fused_path run B: {run_b}, "
                              f"{run_b_step}")
     out = {"phase": "stream_fused_path", "input": [SFM_H, SFM_W],
@@ -5942,10 +6295,14 @@ def bf16_vs_f32(frames: int, int8_share: dict) -> dict:
         d_f32 = f32(xn)
         torch.cuda.synchronize()
         used_f32 = dict(kernels.launches)
-    # both models take the residual kernel, each in its own dtype
-    if (any(v for k, v in used_f32.items() if k != "residual_norm")
+    # both models take the residual and upsample kernels, each in its own
+    # dtype (the f32 model's unfused tail a fifth resize)
+    if (any(v for k, v in used_f32.items()
+            if k not in ("residual_norm", "upsample"))
             or used_f32["residual_norm"] != RESIDUALS * 24
             or used_bf16["residual_norm"] != RESIDUALS * 24
+            or used_f32["upsample"] != UPSAMPLES + 1
+            or used_bf16["upsample"] != UPSAMPLES
             or used_bf16["attention"] != 24
             or used_bf16["dpt_tail"] != 1 or dpt_cfg.fused_head is not False):
         raise AssertionError(f"bf16 model launched {used_bf16}, f32 model "
@@ -6212,8 +6569,9 @@ def forward_routes(model, plain_model, layers: int, images, target,
     (loss_k, pred_k, used_k), (loss_p, pred_p, used_p) = (runs["kernels"],
                                                           runs["plain"])
     if (used_k != {"attention": layers, "dpt_tail": 1,
-                   "residual_norm": RESIDUALS * layers}
-            or used_p != {"residual_norm": RESIDUALS * layers}):
+                   "residual_norm": RESIDUALS * layers, "upsample": UPSAMPLES}
+            or used_p != {"residual_norm": RESIDUALS * layers,
+                          "upsample": UPSAMPLES + 1}):
         raise AssertionError(f"train_path/forward: kernel route launched "
                              f"{used_k}, plain route {used_p}")
     if not (torch.isfinite(pred_k).all() and torch.isfinite(pred_p).all()):
@@ -6663,8 +7021,10 @@ def train_path(smi: str) -> dict:
         kern = (kern[0], {n: g.clone() for n, g in kern[1].items()}, kern[2])
         plain = run(plain_model)
         if (kern[2] != {"attention": layers, "dpt_tail": 1,
-                        "residual_norm": RESIDUALS * layers}
-                or plain[2] != {"residual_norm": RESIDUALS * layers}):
+                        "residual_norm": RESIDUALS * layers,
+                        "upsample": UPSAMPLES}
+                or plain[2] != {"residual_norm": RESIDUALS * layers,
+                                "upsample": UPSAMPLES + 1}):
             raise AssertionError(f"train_path: kernel route launched "
                                  f"{kern[2]}, plain route {plain[2]}")
         checks.append(compare_grads(f"kernels vs plain versions, {term}",
@@ -6767,8 +7127,10 @@ def train_path(smi: str) -> dict:
     if (launches["attention"] != layers * total
             or launches["dpt_tail"] != total
             or launches["residual_norm"] != RESIDUALS * layers * total
+            or launches["upsample"] != UPSAMPLES * total
             or any(v for k, v in launches.items()
-                   if k not in ("attention", "dpt_tail", "residual_norm"))):
+                   if k not in ("attention", "dpt_tail", "residual_norm",
+                                "upsample"))):
         raise AssertionError(f"train_path: launches over {total} steps "
                              f"{launches}")
     if not all(np.isfinite(losses)) or min(losses[1:]) >= losses[0]:

@@ -282,7 +282,8 @@ def test_every_kernel_has_a_launch_count():
                                "attention_key_norm", "attention_bhsd",
                                "attention_cached", "dpt_tail", "segscan",
                                "offset_reduce", "int8_linear", "conv3x3",
-                               "qk_prep", "merge_sorted", "residual_norm"}
+                               "qk_prep", "merge_sorted", "residual_norm",
+                               "upsample"}
     k.launches["conv3x3"] += 2
     k.reset_launches()
     assert not any(k.launches.values())
@@ -292,7 +293,8 @@ def test_every_kernel_has_a_launch_count():
                                   "attention_boundmax", "offset_map_insert",
                                   "voxel_downsample", "lsd_lines",
                                   "qk_prep", "merge_sorted",
-                                  "attention_cached", "residual_norm"])
+                                  "attention_cached", "residual_norm",
+                                  "upsample"])
 def test_cpu_tensors_never_reach_a_kernel(call):
     """On a CPU tensor a wrapper runs its plain version and counts no
     launch."""
@@ -342,6 +344,11 @@ def test_cpu_tensors_never_reach_a_kernel(call):
 
         x = torch.ones(3, 64, dtype=torch.bfloat16)
         residual_norm(x, x, x[0], torch.nn.LayerNorm(64).to(torch.bfloat16))
+    elif call == "upsample":
+        from txr_torch.ops.upsample import upsample_bilinear
+
+        upsample_bilinear(torch.ones(1, 8, 3, 4, dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last), (6, 8), True)
     elif call == "merge_sorted":
         from txr_torch.ops.merge import merge_sorted
 

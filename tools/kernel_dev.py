@@ -11,6 +11,7 @@
     timeout 240 python3 tools/kernel_dev.py merge
     timeout 240 python3 tools/kernel_dev.py cached
     timeout 240 python3 tools/kernel_dev.py residual_norm
+    timeout 240 python3 tools/kernel_dev.py upsample
 
 builds the kernel library with ``-Xptxas -v``, prints what ptxas said about
 the chosen source (registers, spills, and the "wgmma ... serialized"
@@ -18,13 +19,15 @@ warnings that cost most of the speed when they appear), then runs that
 kernel's checks from ``chip_smoke.KERNEL_CHECKS`` at ``chip_smoke.py``'s
 default of 8 frames: the same cases, tolerances and timing loop as the full
 run, each comparison a ``kernel_check`` line, then each check's row (name,
-ms, bound) and ``ok``. It is the short first run of a changed kernel: a
+ms, bound; then the whole row, its shapes' timings too, as JSON) and
+``ok``. It is the short first run of a changed kernel: a
 wrong mbarrier phase hangs rather than fails, so run it under ``timeout``
 before ``chip_smoke.py``. Needs one CUDA device; exits 1 on a failed check.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -70,6 +73,7 @@ def main() -> int:
                 print(f"{row.get('name', row.get('entry'))}: "
                       f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']})", flush=True)
+                print(json.dumps(row, default=str), flush=True)
     except AssertionError as exc:
         print(f"FAILED {exc}", flush=True)
         return 1

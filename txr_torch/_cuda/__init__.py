@@ -40,7 +40,8 @@ launches: Dict[str, int] = {"attention": 0, "attention_boundmax": 0,
                             "attention_cached": 0,
                             "dpt_tail": 0, "segscan": 0, "offset_reduce": 0,
                             "int8_linear": 0, "conv3x3": 0, "qk_prep": 0,
-                            "merge_sorted": 0, "residual_norm": 0}
+                            "merge_sorted": 0, "residual_norm": 0,
+                            "upsample": 0}
 
 build_log: str = ""                     # nvcc's output (ptxas -v when asked)
 
@@ -241,6 +242,15 @@ def _declare(h: ctypes.CDLL) -> None:
     # h out or null, rows, width, dtypes bits, eps, stream)
     h.txr_residual_norm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
     h.txr_residual_norm_fwd.restype = i
+    # (out[4]: threads a block, chunks a segment, widest chunk in bytes,
+    # most channels a chunk)
+    h.txr_upsample_geometry.argtypes = [ctypes.POINTER(i)]
+    h.txr_upsample_geometry.restype = None
+    # (x, y, n, h, w, c, out h, out w, align_corners, channels a chunk,
+    # dtypes bits, stream)
+    h.txr_upsample_bilinear_fwd.argtypes = [p, p, i, i, i, i, i, i, i, i, i,
+                                            p]
+    h.txr_upsample_bilinear_fwd.restype = i
 
 
 def check(err: int, kernel: str) -> None:

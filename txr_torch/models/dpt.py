@@ -5,7 +5,9 @@ Reassemble (project + resize per stage), 3x3 scratch convs, top-down feature
 fusion with pre-activation residual units and align_corners=True bilinear
 upsampling, then the 3-conv output head with ReLU (relative) or
 Sigmoid*max_depth (metric) activation. The output tail (upsample + conv2 +
-ReLU + conv3) goes through ``txr_torch.ops.dpt_tail.fused_head_tail``. With
+ReLU + conv3) goes through ``txr_torch.ops.dpt_tail.fused_head_tail``. Every
+other bilinear resize (the fusion blocks', the unfused tail's) goes through
+``txr_torch.ops.upsample.upsample_bilinear`` (``_bilinear``). With
 ``fused_convs`` the 3x3 convs of the residual units on the large maps and
 the output head's conv1 go through ``txr_torch.ops.conv_stripe``. Every
 other conv is ``F.conv2d`` / ``F.conv_transpose2d`` through ``nn`` modules,
@@ -44,7 +46,8 @@ import torch.nn.functional as F
 from txr_torch.core.derived import Derived
 from txr_torch.ops.conv_stripe import conv3x3_stripe, pack_weight
 from txr_torch.ops.dpt_tail import fused_head_tail, pack_conv2
-from txr_torch.utils.profiling import span
+from txr_torch.ops.upsample import upsample_bilinear
+from txr_torch.utils.profiling import count, span
 
 # FeatureFusionBlock sends its residual units through the 3x3 conv kernel
 # only on maps of at least this many pixels (txr's gate)
@@ -81,8 +84,12 @@ DEPTH_CHANNELS, RAY_CHANNELS = 2, 7
 
 
 def _bilinear(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
-    return F.interpolate(x, size=tuple(size), mode="bilinear",
-                         align_corners=align_corners)
+    """``ops.upsample``: ``F.interpolate``'s bilinear resize, one kernel on
+    the card; counts ``models.upsample_kernel_calls`` or
+    ``models.upsample_plain_calls``, one a call."""
+    count("models.upsample_plain_calls" if x.device.type == "cpu"
+          else "models.upsample_kernel_calls", 1)
+    return upsample_bilinear(x, size, align_corners)
 
 
 def _hwio(weight: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,10 @@ and ``models.attention_flops`` (host int: 4 H D times those pairs, every
 attention call), ``models.head_pos_embed_hits`` /
 ``models.head_pos_embed_misses`` (host ints: each of VGGT's heads' kept
 position embeddings and tail terms reused or recomputed,
-``models/dpt.py``) and ``fusion.rows_sorted`` / ``fusion.rows_merged`` /
+``models/dpt.py``), ``models.upsample_kernel_calls`` /
+``models.upsample_plain_calls`` (host ints: each bilinear resize of a DPT
+head through the kernel or the plain version, ``models/dpt.py``) and
+``fusion.rows_sorted`` / ``fusion.rows_merged`` /
 ``fusion.points_valid`` (the insert's rows sorted, the map's rows merged
 with them unsorted, and the batch's mask summed on its device,
 ``fusion/offset_map.py``).
